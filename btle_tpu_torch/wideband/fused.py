@@ -1,0 +1,467 @@
+"""Fused wideband front end on Hopper: channelize + demod + AA + RSSI.
+
+Port of btle_tpu/wideband/fused.py. The TPU runs the whole front end in
+one Pallas kernel per time tile; here it is two hand-written CUDA
+kernels per block (``csrc/``), each with a plain PyTorch twin in this
+module:
+
+  1. the filterbank, by mode —
+     - ``"bf16x2w"`` (shipped default): the DFT-folded polyphase
+       filterbank, bf16 frames times the exact bf16 hi/lo weight pair
+       (``filterbank_bf16x2w``, port of ``_kernel`` inner "im2col");
+     - ``"f32"`` (exact parity mode): the stacked true-polyphase FMAs,
+       then the 80x80 DFT, in true FP32 (``filterbank_polyx_f32``, port
+       of ``_kernel_polyx``);
+  2. the demod tail shared by both (``demod_tail``, port of
+     ``_demod_tail``): phase-difference decisions, the per-channel
+     32-tap access-address test, RSSI window sums.
+
+The 80-row baseband y goes through device memory between the two
+launches; keeping it on chip, as the TPU kernel does, is ROADMAP perf
+work. The (-1)^(mk) half-band sign is never applied to y: it cancels in
+the demod at even lag and flips odd bins' decisions at odd lag.
+
+Wrappers take the plain twin only for tensors on the CPU; a CUDA tensor
+launches the kernel or raises. ``tile``, ``_POLY_GROUP``, ``AA_GRP``,
+128-lane padding and ``dev_skip`` were Mosaic workarounds, not
+semantics: ``tile`` is accepted for signature compatibility and changes
+nothing.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .._build import CudaKernel
+from .._device import as_tensor, resolve_device
+from .channelizer import (D, DEFAULT_TAPS, M, _dft_matrix, _fused_kernel,
+                          _poly_kernel, branch_columns, frame_rows, true_fp32)
+
+AA_BITS = 32
+N_CHUNKS = 5        # im2col chunking of the shift axis (width 65 -> 5 x 13)
+POLYX_STACK = 2     # pre-shifted frame copies stacked per slice ("polyx")
+
+FILTERBANK_BF16X2W = CudaKernel("filterbank_bf16x2w",
+                                replaces="btle_tpu/wideband/fused.py:373")
+FILTERBANK_POLYX_F32 = CudaKernel("filterbank_polyx_f32",
+                                  replaces="btle_tpu/wideband/fused.py:620")
+DEMOD_TAIL = CudaKernel("demod_tail", replaces="btle_tpu/wideband/fused.py:458")
+
+# the ported numerics classes and their inner (ROADMAP kernel queue K5/K6
+# brings the others)
+_MODES = {"bf16x2w": "im2col", "f32": "polyx"}
+
+
+# --------------------------------------------------------------------------
+# Static tables (numpy copies of btle_tpu/wideband/fused.py:79-332)
+# --------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _g_stack(num_taps: int, cutoff_mhz: float = 1.0) -> np.ndarray:
+    """(65, 80, 40) filterbank+DFT weights: y[o, k] = sum_s G[s] @ F[:, k+s].
+
+    From channelizer._fused_kernel's conv weights w[o, i, s] (OIW layout):
+    G[s][o, i] = w[o, i, s]. Input rows i: 0..19 = I decimated streams,
+    20..39 = Q; output rows o: 0..39 = y_i bins, 40..79 = y_q bins.
+    """
+    w = _fused_kernel(num_taps, cutoff_mhz)  # (80, 40, width)
+    return np.ascontiguousarray(np.transpose(w, (2, 0, 1)))
+
+
+@lru_cache(maxsize=None)
+def _g_chunks(num_taps: int, cutoff_mhz: float = 1.0) -> np.ndarray:
+    """(N_CHUNKS, 80, chunk*40) im2col weights: chunk c contracts over the
+    rows X[j*40+i, k] = F[i, k + c*chunk + j]."""
+    g = _g_stack(num_taps, cutoff_mhz)   # (width, 80, 40)
+    width = g.shape[0]
+    chunk = -(-width // N_CHUNKS)
+    gp = np.zeros((N_CHUNKS * chunk, 2 * M, 2 * D), g.dtype)
+    gp[:width] = g
+    # gc[c][o, j*40 + i] = g[c*chunk + j][o, i]
+    gc = gp.reshape(N_CHUNKS, chunk, 2 * M, 2 * D)
+    gc = np.transpose(gc, (0, 2, 1, 3)).reshape(N_CHUNKS, 2 * M, chunk * 2 * D)
+    return np.ascontiguousarray(gc)
+
+
+@lru_cache(maxsize=None)
+def _g_chunks_hilo(num_taps: int, cutoff_mhz: float = 1.0) -> np.ndarray:
+    """(N_CHUNKS, 160, chunk*40) bf16 hi/lo im2col weight pair, stacked.
+
+    gc = hi + lo to ~16 mantissa bits (~-96 dB — each half carries 8
+    bf16 mantissa bits), both halves bf16-representable; rows 0..79 = hi,
+    80..159 = lo. Rounded with torch's float32 -> bfloat16 conversion,
+    which rounds to nearest even like ml_dtypes.
+    """
+    gc = torch.from_numpy(_g_chunks(num_taps, cutoff_mhz).astype(np.float32))
+    hi = gc.to(torch.bfloat16).to(torch.float32)
+    lo = (gc - hi).to(torch.bfloat16).to(torch.float32)
+    return np.ascontiguousarray(torch.cat([hi, lo], dim=1).numpy())
+
+
+@lru_cache(maxsize=None)
+def _poly_tables(num_taps: int, cutoff_mhz: float = 1.0):
+    """Static tables for the true-polyphase form.
+
+    Returns (perm, kcoef, wdft):
+      perm  (80,)  frame-row gather building f_perm = f_t[perm], rows
+                   [even-parity I(20) | even Q(20) | odd I(20) | odd Q(20)]
+      kcoef (80, width) per-row tap value at shift s (zeros elsewhere)
+      wdft  (80, 80) DFT + row-permutation matmul: [y_i; y_q] = W @ u
+    """
+    assert num_taps % (2 * D) == 0, \
+        f"poly inner needs num_taps % {2 * D} == 0, got {num_taps}"
+    kern, row_of_p = _poly_kernel(num_taps, cutoff_mhz)
+    width = kern.shape[2]
+    cols = branch_columns()
+    even_p = [0] + list(range(D + 1, M))
+    odd_p = list(range(1, D + 1))
+    perm = np.array(
+        [cols[p] for p in even_p] + [D + cols[p] for p in even_p]
+        + [cols[p] for p in odd_p] + [D + cols[p] for p in odd_p],
+        np.int32)
+    kcoef = np.zeros((2 * M, width), np.float32)
+    half = len(even_p)                                    # 20
+    for g, p in enumerate(even_p):
+        kcoef[g] = kcoef[half + g] = kern[row_of_p[p], 0]
+    for g, p in enumerate(odd_p):
+        kcoef[2 * half + g] = kcoef[3 * half + g] = kern[row_of_p[p], 0]
+    ri = np.zeros(M, np.int64)
+    rq = np.zeros(M, np.int64)
+    for g, p in enumerate(even_p):
+        ri[p], rq[p] = g, half + g
+    for g, p in enumerate(odd_p):
+        ri[p], rq[p] = 2 * half + g, 3 * half + g
+    er, ei = _dft_matrix()
+    er64, ei64 = er.astype(np.float64), ei.astype(np.float64)
+    wdft = np.zeros((2 * M, 2 * M), np.float64)
+    rows = np.arange(M)[:, None]
+    wdft[rows, ri[None, :]] = er64                        # y_i <- Er u_i
+    wdft[rows, rq[None, :]] = -ei64                       # y_i <- -Ei u_q
+    wdft[M + rows, ri[None, :]] = ei64                    # y_q <- Ei u_i
+    wdft[M + rows, rq[None, :]] = er64                    # y_q <- Er u_q
+    return perm, kcoef, wdft.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _polyx_tables(num_taps: int, stack: int = POLYX_STACK,
+                  cutoff_mhz: float = 1.0):
+    """Static tables for the stacked true-polyphase form ("polyx").
+
+    Row group g of the stacked frames holds parity-(g%2) permuted rows
+    left-shifted by g columns, so one slice at offset stack*j covers tap
+    shifts stack*j .. stack*j+stack-1.
+
+    Returns (perm, kcoefx, w4x, n_slices):
+      perm    (80,)   frame-row gather (same as _poly_tables)
+      kcoefx  (stack*40, n_slices) tap value of row r's branch at shift
+                      stack*j + (r//40), zero where that shift >= width
+      w4x     (80, stack*40) DFT matmul over the stacked accumulator
+    """
+    assert stack % 2 == 0, "stack must pair the even/odd parity groups"
+    perm, kcoef, wdft = _poly_tables(num_taps, cutoff_mhz)
+    width = kcoef.shape[1]
+    n_slices = -(-width // stack)
+    kcoefx = np.zeros((stack * 2 * D, n_slices), np.float32)
+    for g in range(stack):
+        block = kcoef[:2 * D] if g % 2 == 0 else kcoef[2 * D:]
+        for j in range(n_slices):
+            s = stack * j + g
+            if s < width:
+                kcoefx[g * 2 * D : (g + 1) * 2 * D, j] = block[:, s]
+    we, wo = wdft[:, :2 * D], wdft[:, 2 * D:]
+    w4x = np.concatenate([we if g % 2 == 0 else wo
+                          for g in range(stack)], axis=1)
+    return perm, kcoefx, np.ascontiguousarray(w4x), n_slices
+
+
+@lru_cache(maxsize=32)
+def _device_tables(mode: str, num_taps: int, cutoff_mhz: float,
+                   device: torch.device):
+    """The mode's weight tensors on ``device`` (uploaded once)."""
+    from ..convert import filter_tables_from_numpy
+
+    if mode == "bf16x2w":
+        tables = (_g_chunks_hilo(num_taps, cutoff_mhz),)
+    else:
+        tables = _polyx_tables(num_taps, POLYX_STACK, cutoff_mhz)
+    return filter_tables_from_numpy(mode, tables, device)
+
+
+# --------------------------------------------------------------------------
+# Kernels and their plain twins
+# --------------------------------------------------------------------------
+
+
+def _check_cuda(name: str, *tensors):
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: tensors must all lie on one CUDA "
+                             f"device or all on the CPU, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def filterbank_bf16x2w_reference(frames, gk, width: int, ky: int):
+    """Plain twin of ``filterbank_bf16x2w``: one float32 convolution of the
+    frames with the stacked (160, 40, width) hi/lo weights, then the hi and
+    lo row halves summed (bf16 x bf16 products are exact in float32)."""
+    n_chunks, rows, cols = gk.shape
+    chunk = cols // (2 * D)
+    # W[o, i, c*chunk + j] = gk[c, o, j*40 + i]
+    w = (gk.to(torch.float32).reshape(n_chunks, rows, chunk, 2 * D)
+         .permute(1, 3, 0, 2).reshape(rows, 2 * D, n_chunks * chunk))
+    x = frames.to(torch.float32)[None, :, : ky + width - 1]
+    with true_fp32():
+        y2 = torch.nn.functional.conv1d(x, w[:, :, :width].contiguous())[0]
+    return y2[: 2 * M] + y2[2 * M:]
+
+
+def filterbank_bf16x2w(frames, gk, width: int, ky: int):
+    """(40, J) bf16 frames (zero-padded to at least ky + width - 1 columns)
+    and the (n_chunks, 160, chunk*40) bf16 hi/lo weights -> y (80, ky)
+    float32, the 40-channel baseband before the demod tail."""
+    if frames.device.type == "cpu":
+        return filterbank_bf16x2w_reference(frames, gk, width, ky)
+    _check_cuda("filterbank_bf16x2w", frames, gk)
+    if frames.dtype != torch.bfloat16 or gk.dtype != torch.bfloat16:
+        raise ValueError("filterbank_bf16x2w takes bf16 frames and weights")
+    n_chunks, rows, cols = gk.shape
+    if frames.shape[0] != 2 * D or rows != 4 * M or n_chunks * cols < width * 2 * D:
+        raise ValueError(f"filterbank_bf16x2w: bad shapes {tuple(frames.shape)}, "
+                         f"{tuple(gk.shape)}")
+    y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
+    FILTERBANK_BF16X2W.launch(frames, gk, y, frames.shape[1], ky, n_chunks,
+                              cols // (2 * D), width)
+    return y
+
+
+def filterbank_polyx_f32_reference(f4, kcoefx, w4x, ky: int,
+                                   stack: int = POLYX_STACK):
+    """Plain twin of ``filterbank_polyx_f32``: the stacked shifted FMAs,
+    slice by slice, then the DFT product, in true FP32."""
+    acc = torch.zeros((f4.shape[0], ky), dtype=torch.float32, device=f4.device)
+    for j in range(kcoefx.shape[1]):
+        acc = acc + f4[:, stack * j: stack * j + ky] * kcoefx[:, j: j + 1]
+    with true_fp32():
+        return w4x @ acc
+
+
+def filterbank_polyx_f32(f4, kcoefx, w4x, ky: int, stack: int = POLYX_STACK):
+    """(stack*40, J) float32 stacked pre-shifted frames (J at least
+    ky + stack*(n_slices-1)), kcoefx (stack*40, n_slices) and the
+    (80, stack*40) DFT -> y (80, ky) float32, in true FP32."""
+    if f4.device.type == "cpu":
+        return filterbank_polyx_f32_reference(f4, kcoefx, w4x, ky, stack)
+    _check_cuda("filterbank_polyx_f32", f4, kcoefx, w4x)
+    rows, n_slices = kcoefx.shape
+    if (f4.dtype != torch.float32 or f4.shape[0] != rows
+            or f4.shape[1] < ky + stack * (n_slices - 1)
+            or tuple(w4x.shape) != (2 * M, rows)):
+        raise ValueError("filterbank_polyx_f32: bad shapes or dtype")
+    y = torch.empty((2 * M, ky), dtype=torch.float32, device=f4.device)
+    FILTERBANK_POLYX_F32.launch(f4, kcoefx, w4x, y, f4.shape[1], ky, rows,
+                                n_slices, stack)
+    return y
+
+
+def demod_tail_reference(y, aa_rows, aa_mask, sps: int, lag: int,
+                         n_bits: int, n_hit: int):
+    """Plain twin of ``demod_tail`` — the arithmetic of fused.py's
+    _demod_tail on whole rows: decisions, the 32-tap AA correlation of the
+    +-1 lattice against the masked AA signs (exact small integers in
+    float32), and the RSSI window sums by the same pairwise doubling."""
+    y_i, y_q = y[:M], y[M:]
+    d = (y_i[:, :n_bits] * y_q[:, lag: n_bits + lag]
+         - y_i[:, lag: n_bits + lag] * y_q[:, :n_bits])
+    if lag % 2:
+        odd = (torch.arange(M, device=y.device) % 2 == 1)[:, None]
+        bits = torch.where(odd, d < 0, d > 0)
+    else:
+        bits = d > 0
+    s_lat = bits.to(torch.float32) * 2 - 1
+    mask = aa_mask.to(torch.float32)
+    tsign = (aa_rows.to(torch.float32) * 2 - 1) * mask[None, :]
+    acc = torch.zeros((M, n_hit), dtype=torch.float32, device=y.device)
+    for j in range(AA_BITS):
+        acc = acc + s_lat[:, j * sps: j * sps + n_hit] * tsign[:, j: j + 1]
+    hit = acc == mask.sum()
+    win = AA_BITS * sps
+    w = y_i.abs() + y_q.abs()
+    span = 1
+    while span < win:
+        w = w[:, : w.shape[1] - span] + w[:, span:]
+        span *= 2
+    return bits.to(torch.int8), hit, w[:, :n_hit] * (1.0 / win)
+
+
+def demod_tail(y, aa_rows, aa_mask, sps: int, lag: int, n_bits: int,
+               n_hit: int):
+    """y (80, Ky) float32 baseband, aa_rows (40, 32) and aa_mask (32,) int8
+    -> bits (40, n_bits) int8, hit (40, n_hit) bool, mag (40, n_hit)
+    float32. Needs Ky >= n_bits + lag and Ky >= n_hit + 32*sps - 1."""
+    win = AA_BITS * sps
+    if y.shape[1] < max(n_bits + lag, n_hit + win - 1):
+        raise ValueError("demod_tail: y has too few columns")
+    if y.device.type == "cpu":
+        return demod_tail_reference(y, aa_rows, aa_mask, sps, lag, n_bits, n_hit)
+    _check_cuda("demod_tail", y, aa_rows, aa_mask)
+    if (y.dtype != torch.float32 or y.shape[0] != 2 * M
+            or aa_rows.dtype != torch.int8 or tuple(aa_rows.shape) != (M, AA_BITS)
+            or aa_mask.dtype != torch.int8 or tuple(aa_mask.shape) != (AA_BITS,)
+            or not 1 <= sps <= 8 or win & (win - 1)):
+        raise ValueError("demod_tail: bad dtype, shape or sps")
+    dev = y.device
+    bits = torch.empty((M, n_bits), dtype=torch.int8, device=dev)
+    hit = torch.empty((M, n_hit), dtype=torch.bool, device=dev)
+    mag = torch.empty((M, n_hit), dtype=torch.float32, device=dev)
+    DEMOD_TAIL.launch(y, aa_rows, aa_mask, bits, hit, mag, y.shape[1],
+                      n_bits, n_hit, sps, lag)
+    return bits, hit, mag
+
+
+# --------------------------------------------------------------------------
+# Front end and scan
+# --------------------------------------------------------------------------
+
+
+def _mode_inner(compute_dtype: str, inner: str | None) -> str:
+    if compute_dtype not in _MODES:
+        raise NotImplementedError(
+            f"compute_dtype {compute_dtype!r} is not ported yet (ROADMAP "
+            "kernel queue K5: the other numerics classes of _kernel); "
+            f"ported: {sorted(_MODES)}")
+    default = _MODES[compute_dtype]
+    if inner is not None and inner != default:
+        raise NotImplementedError(
+            f"inner {inner!r} is not ported yet (ROADMAP kernel queue K5/K6: "
+            f"the Mosaic scheduling variants); {compute_dtype!r} runs "
+            f"{default!r}")
+    return default
+
+
+def frontend_operands(i_wb, q_wb, aa_rows, aa_mask, num_taps: int,
+                      has_context: bool, sps: int, lag: int,
+                      compute_dtype: str, cutoff_mhz: float,
+                      device: torch.device):
+    """Frame prep (identical to channelize's) and the operands of the
+    mode's two kernels: (filterbank_args, tail_args) such that
+    ``demod_tail(FILTERBANKS[compute_dtype][0](*filterbank_args),
+    *tail_args)`` is the front end's output."""
+    win = AA_BITS * sps
+    if win & (win - 1):
+        raise ValueError("RSSI doubling needs 32*sps to be a power of 2")
+    i_wb, q_wb = as_tensor(i_wb, device), as_tensor(q_wb, device)
+    aa_rows = as_tensor(aa_rows, device, torch.int8)
+    if aa_rows.ndim == 1:
+        aa_rows = aa_rows.expand(M, AA_BITS)
+    aa_rows = aa_rows.contiguous()
+    aa_mask = as_tensor(aa_mask, device, torch.int8).contiguous()
+
+    width = _g_stack(num_taps, cutoff_mhz).shape[0]
+    f_t = frame_rows(i_wb, q_wb, num_taps, has_context)   # (40, J)
+    k_out = f_t.shape[1] - (width - 1)                    # == channelize K
+    n_bits = k_out - lag
+    n_hit = n_bits - (AA_BITS - 1) * sps
+    if n_hit <= 0:
+        raise ValueError("block too short for one access-address window")
+    # y columns the tail reads: the demod lag, or the RSSI window past the
+    # last hit position; columns past K come from zero frames, as on the TPU
+    ky = max(k_out, n_hit + win - 1)
+
+    if compute_dtype == "bf16x2w":
+        (gk,) = _device_tables("bf16x2w", num_taps, cutoff_mhz, device)
+        frames = torch.nn.functional.pad(
+            f_t, (0, ky + width - 1 - f_t.shape[1])).to(torch.bfloat16)
+        fb_args = (frames, gk, width, ky)
+    else:
+        perm, kcoefx, w4x = _device_tables("f32", num_taps, cutoff_mhz, device)
+        stack, n_slices = POLYX_STACK, kcoefx.shape[1]
+        jp = ky + stack * (n_slices - 1)
+        fp = torch.nn.functional.pad(f_t, (0, jp + stack - 1 - f_t.shape[1]))[perm]
+        half = 2 * D
+        f4 = torch.cat([fp[(g % 2) * half: (g % 2 + 1) * half, g: g + jp]
+                        for g in range(stack)]).contiguous()
+        fb_args = (f4, kcoefx, w4x, ky, stack)
+    return fb_args, (aa_rows, aa_mask, sps, lag, n_bits, n_hit)
+
+
+# mode -> (filterbank kernel wrapper, its plain twin)
+FILTERBANKS = {
+    "bf16x2w": (filterbank_bf16x2w, filterbank_bf16x2w_reference),
+    "f32": (filterbank_polyx_f32, filterbank_polyx_f32_reference),
+}
+
+
+def fused_frontend(i_wb, q_wb, aa_rows, aa_mask, num_taps: int = DEFAULT_TAPS,
+                   has_context: bool = False, sps: int = 4, lag: int = 4,
+                   tile: int | None = None, compute_dtype: str = "f32",
+                   inner: str | None = None, cutoff_mhz: float = 1.0,
+                   device=None):
+    """80 Msps wideband IQ -> per-channel (bits, hit, mag) lattices.
+
+    Drop-in for channelize + scan_block per channel: returns
+      bits (M, K-lag)          decision lattice (int8 0/1)
+      hit  (M, K-lag-31*sps)   AA-match mask (bool)
+      mag  (M, K-lag-31*sps)   RSSI window mean at each position (f32)
+    with K the per-channel sample count channelize() would produce.
+    aa_rows: (M, 32) per-channel AA bits (or (32,), broadcast). Runs on
+    ``device`` (cuda unless the caller passes another); ``tile`` is
+    accepted for signature compatibility and changes nothing.
+    """
+    del tile
+    _mode_inner(compute_dtype, inner)
+    fb_args, tail_args = frontend_operands(
+        i_wb, q_wb, aa_rows, aa_mask, num_taps, has_context, sps, lag,
+        compute_dtype, cutoff_mhz, resolve_device(device))
+    y = FILTERBANKS[compute_dtype][0](*fb_args)
+    return demod_tail(y, *tail_args)
+
+
+def wideband_scan_fused(i_wb, q_wb, aa_rows, aa_mask, whiten_rows, crc_inits,
+                        adv_flags, sps: int = 4, lag: int = 4,
+                        max_candidates: int = 8, num_taps: int = DEFAULT_TAPS,
+                        has_context: bool = False, tile: int | None = None,
+                        compute_dtype: str = "f32", inner: str | None = None,
+                        decode: str = "pallas", cutoff_mhz: float = 1.0,
+                        device=None):
+    """Drop-in for sniffer.wideband_scan with the fused front end: the
+    same per-channel candidate dict. decode="pallas" runs the candidate
+    decode kernel (rx.decode_kernel, the port of rx.pallas_decode);
+    decode="xla" the plain rx.pipeline decode — names kept from the JAX
+    package so a reader finds the counterpart."""
+    from ..rx.decode_kernel import decode_candidates
+    from ..rx.pipeline import decode_from_lattice, earliest_hits
+
+    if decode not in ("pallas", "xla"):
+        raise ValueError(f"unknown decode {decode!r} (want 'pallas'|'xla')")
+    dev = resolve_device(device)
+    bits, hit, mag = fused_frontend(
+        i_wb, q_wb, aa_rows, aa_mask, num_taps=num_taps,
+        has_context=has_context, sps=sps, lag=lag, tile=tile,
+        compute_dtype=compute_dtype, inner=inner, cutoff_mhz=cutoff_mhz,
+        device=dev)
+    whiten_rows = as_tensor(whiten_rows, dev, torch.int8)
+    crc_inits = as_tensor(crc_inits, dev, torch.int32)
+    adv_flags = as_tensor(adv_flags, dev, torch.bool)
+    if decode == "xla":
+        return decode_from_lattice(hit, bits, mag, whiten_rows, crc_inits,
+                                   adv_flags, sps=sps,
+                                   max_candidates=max_candidates)
+    pos, valid, num_hits = earliest_hits(hit, max_candidates, 0)
+    pkt_bytes, plen, crc_match, len_ok = decode_candidates(
+        bits, pos, whiten_rows, crc_inits, adv_flags, sps=sps)
+    mag_mean = mag.gather(1, pos.to(torch.int64).clamp(0, mag.shape[1] - 1))
+    return {
+        "pos": pos,
+        "valid": valid,
+        "payload_len": plen,
+        "len_ok": len_ok,
+        "crc_ok": crc_match & len_ok & valid,
+        "pdu_bytes": pkt_bytes,
+        "mag_mean": mag_mean,
+        "num_hits": num_hits,
+    }

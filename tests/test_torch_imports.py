@@ -1,0 +1,65 @@
+"""The PyTorch port imports no JAX and nothing of the JAX package.
+
+tests/conftest.py imports jax into this process, so the import check
+runs every port module (and chip_smoke.py) in a fresh subprocess; a
+static scan of the sources backs it up.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_MODULES = [
+    "btle_tpu_torch",
+    "btle_tpu_torch._build",
+    "btle_tpu_torch._device",
+    "btle_tpu_torch.convert",
+    "btle_tpu_torch.spec",
+    "btle_tpu_torch.golden",
+    "btle_tpu_torch.ll",
+    "btle_tpu_torch.phy",
+    "btle_tpu_torch.rx",
+    "btle_tpu_torch.rx.decode_kernel",
+    "btle_tpu_torch.rx.pipeline",
+    "btle_tpu_torch.wideband",
+    "btle_tpu_torch.wideband.channelizer",
+    "btle_tpu_torch.wideband.fused",
+    "btle_tpu_torch.wideband.selftest",
+    "btle_tpu_torch.wideband.sniffer",
+    "chip_smoke",
+]
+
+_CHECK = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "btle_tpu"))
+print(" ".join(bad))
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_modules_load_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _CHECK, *PORT_MODULES],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|btle_tpu)(\.|\s|$)",
+                        re.MULTILINE)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p.relative_to(ROOT).as_posix()
+                   for p in [*(ROOT / "btle_tpu_torch").rglob("*.py"),
+                             ROOT / "chip_smoke.py"]))
+def test_port_sources_name_no_jax(path):
+    src = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(src), _FORBIDDEN.search(src).group(0)
