@@ -17,6 +17,8 @@ def __getattr__(name):
         "WidebandSniffer": ("btle_tpu_torch.wideband", "WidebandSniffer"),
         "WidebandConfig": ("btle_tpu_torch.wideband", "WidebandConfig"),
         "fused_selftest": ("btle_tpu_torch.wideband", "fused_selftest"),
+        "Sniffer": ("btle_tpu_torch.stream", "Sniffer"),
+        "SnifferConfig": ("btle_tpu_torch.stream", "SnifferConfig"),
     }
     if name in lazy:
         import importlib

@@ -43,8 +43,10 @@ _SIGNATURES = {
     # y, aa_rows, aa_mask, bits, hit, mag, Ky, n_bits, n_hit, sps, lag, stream
     "demod_tail": "ppppppllliip",
     # bits, pos, whiten, crc_inits, adv, bytes, plen, match, len_ok,
-    # M, Kb, C, sps, stream
-    "decode_candidates": "pppppppppiliip",
+    # M, Kb, C, sps, clamp_tail, stream
+    "decode_candidates": "pppppppppiliiip",
+    # i, q, aa_rows, aa_mask, bits, hit, rows, N, sps, lag, is_float, stream
+    "scan_block": "ppppppiliiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
 

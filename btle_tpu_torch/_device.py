@@ -8,15 +8,14 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
-    for another. Without a card and without an explicit device this
+    for another. Asked for ``cuda`` (or for nothing) without a card, this
     raises — the port never drops to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run the "
-                "plain PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev
 
 
 def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None):

@@ -4,11 +4,14 @@ The JAX package keeps its scan tables, filter weights and sniffer state
 as arrays; handed over as numpy arrays (``np.asarray`` of each), these
 helpers turn them into the port's tensors with the port's dtypes, so a
 deployment can move a stream from one package to the other mid-capture
-(``WidebandSniffer.load_state``) or check that both packages hold the
-same tables.
+(``WidebandSniffer.load_state``; ``sniffer_state`` +
+``sniffer_from_state`` for the narrowband ``Sniffer``) or check that both
+packages hold the same tables.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -52,3 +55,66 @@ def filter_tables_from_numpy(compute_dtype: str, tables, device):
                 torch.as_tensor(np.asarray(kcoefx, np.float32), device=dev).contiguous(),
                 torch.as_tensor(np.asarray(w4x, np.float32), device=dev).contiguous())
     raise NotImplementedError(f"no filter tables for compute_dtype {compute_dtype!r}")
+
+
+def sniffer_state(sniffer, next_offset: int, skip: int) -> dict:
+    """The carried state of a narrowband Sniffer of either package, as
+    plain Python values, taken between two blocks: the receive
+    configuration (channel, access address, CRC init), the packet count
+    and text clock, the dwell-rotation position, the hop tracker's fields
+    (its callback left out) and the block iterator's cursor —
+    ``next_offset``, the absolute sample index where the next block
+    starts, and ``skip``, the lattice positions of that block the last
+    packets consumed (the iterator's ``_skip`` after ``consume_to``)."""
+    t = sniffer.hop_tracker
+    hop = None
+    if t is not None:
+        hop = {f.name: getattr(t, f.name) for f in dataclasses.fields(t)
+               if f.name != "on_event"}
+        hop["conn"] = None if t.conn is None else dataclasses.asdict(t.conn)
+        hop["events"] = [dataclasses.asdict(e) for e in t.events]
+    return {
+        "config": dataclasses.asdict(sniffer.cfg),
+        "channel": int(sniffer.channel),
+        "access_addr": int(sniffer.access_addr),
+        "crc_init_internal": int(sniffer.crc_init_internal),
+        "pkt_count": int(sniffer.pkt_count),
+        "last_pkt_us": int(sniffer._last_pkt_us),
+        "rotate_idx": int(sniffer._rotate_idx),
+        "dwell_start_us": int(sniffer._dwell_start_us),
+        "hop": hop,
+        "next_offset": int(next_offset),
+        "skip": int(skip),
+    }
+
+
+def sniffer_from_state(state: dict, device=None, **outputs):
+    """A port ``Sniffer`` that continues the stream ``state``
+    (``sniffer_state``) describes. ``outputs`` are the Sniffer's other
+    arguments (ndjson, pcap, text_fh, quiet_text, control). Run it with
+    ``sn.run(rest, offset=state["next_offset"], skip=state["skip"])``,
+    where ``rest`` yields the samples from ``next_offset`` on."""
+    from .ll.hop import ConnectionInfo, HopEvent, HopTracker
+    from .stream.sniffer import Sniffer, SnifferConfig
+
+    cfg = dict(state["config"])
+    cfg["rotate_channels"] = tuple(cfg["rotate_channels"])
+    sn = Sniffer(SnifferConfig(**cfg), device=device, **outputs)
+    sn.channel = state["channel"]
+    sn.access_addr = state["access_addr"]
+    sn.crc_init_internal = state["crc_init_internal"]
+    sn.pkt_count = state["pkt_count"]
+    sn._last_pkt_us = state["last_pkt_us"]
+    sn._rotate_idx = state["rotate_idx"]
+    sn._dwell_start_us = state["dwell_start_us"]
+    hop = state["hop"]
+    if (hop is None) != (sn.hop_tracker is None):
+        raise ValueError("hop state and the config's hop flag disagree")
+    if hop is not None:
+        hop = dict(hop)
+        if hop["conn"] is not None:
+            hop["conn"] = ConnectionInfo(**hop["conn"])
+        hop["events"] = [HopEvent(**e) for e in hop["events"]]
+        hop["used"] = tuple(hop["used"])
+        sn.hop_tracker = HopTracker(**hop)
+    return sn

@@ -2,12 +2,13 @@
 
 Port of btle_tpu/rx/pallas_decode.py. ``decode_candidates`` runs the
 hand-written CUDA kernel (``csrc/decode_candidates.cu``) on CUDA tensors
-and its plain twin ``decode_candidates_reference`` on CPU tensors. The
-semantics are those of the TPU kernel: positions clamp to [0, Kb-1] and
-window bits past the end of the lattice read as zero (the XLA decode,
-rx.pipeline._decode_candidate, clamps its gathers to the last element
-instead, so only candidates inside the final window-length of the
-lattice tail differ — positions in the stream halo, never consumed).
+and its plain twin ``decode_candidates_reference`` on CPU tensors.
+``clamp_tail`` picks what a window reads past the end of the lattice:
+False (the fused wideband scan) keeps the TPU kernel's semantics —
+positions clamp to [0, Kb-1] and those bits read as zero; True (every
+dense block decode, rx.pipeline.decode_block) clamps each window index
+to [0, Kb-1] as the XLA decode, rx.pipeline._decode_candidate, does.
+The two differ only for candidates whose window runs past the lattice.
 """
 
 from __future__ import annotations
@@ -23,24 +24,26 @@ DECODE_CANDIDATES = CudaKernel("decode_candidates",
 
 
 def decode_candidates_reference(bits, pos, whiten_rows, crc_inits, adv_flags,
-                                sps: int = 4):
-    """Plain twin of ``decode_candidates``: zero-padded window gather,
-    XOR whitening, then the byte packing and table CRC of
-    rx.pipeline.decode_window."""
+                                sps: int = 4, clamp_tail: bool = False):
+    """Plain twin of ``decode_candidates``: the window gather (zero-padded,
+    or clamped with ``clamp_tail``), XOR whitening, then the byte packing
+    and table CRC of rx.pipeline.decode_window."""
     kb = bits.shape[1]
-    pos = pos.clamp(0, kb - 1)
-    idx = window_index(pos, sps)
-    inside = idx < kb
-    flat = idx.clamp(max=kb - 1).reshape(idx.shape[0], -1)
-    raw = torch.where(inside, bits.gather(1, flat).reshape(idx.shape),
-                      torch.zeros((), dtype=bits.dtype, device=bits.device))
+    if clamp_tail:
+        idx = window_index(pos, sps).clamp(0, kb - 1)
+        raw = bits.gather(1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+    else:
+        idx = window_index(pos.clamp(0, kb - 1), sps)
+        flat = idx.clamp(max=kb - 1).reshape(idx.shape[0], -1)
+        raw = torch.where(idx < kb, bits.gather(1, flat).reshape(idx.shape),
+                          torch.zeros((), dtype=bits.dtype, device=bits.device))
     dew = raw.to(torch.int32) ^ whiten_rows.to(torch.int32)[:, None, :]
     plen, crc_match, pkt_bytes, len_ok = decode_window(dew, crc_inits, adv_flags)
     return pkt_bytes, plen, crc_match, len_ok
 
 
 def decode_candidates(bits, pos, whiten_rows, crc_inits, adv_flags,
-                      sps: int = 4):
+                      sps: int = 4, clamp_tail: bool = False):
     """Decode candidate windows for all channels.
 
     bits: (M, Kb) int8 full-rate lattices; pos: (M, C) int32 positions;
@@ -50,7 +53,7 @@ def decode_candidates(bits, pos, whiten_rows, crc_inits, adv_flags,
     """
     if bits.device.type == "cpu":
         return decode_candidates_reference(bits, pos, whiten_rows, crc_inits,
-                                           adv_flags, sps)
+                                           adv_flags, sps, clamp_tail)
     dev = bits.device
     if dev.type != "cuda":
         raise ValueError(f"decode_candidates: unsupported device {dev}")
@@ -72,5 +75,5 @@ def decode_candidates(bits, pos, whiten_rows, crc_inits, adv_flags,
     if m * c_slots:
         DECODE_CANDIDATES.launch(bits, pos, whiten_rows, crc_inits, adv_flags,
                                  pkt_bytes, plen, match, len_ok, m, kb,
-                                 c_slots, sps)
+                                 c_slots, sps, int(clamp_tail))
     return pkt_bytes, plen, match, len_ok

@@ -11,6 +11,11 @@ leading batch dimension: every (N,) lattice of the JAX functions is a
      de-whitening, byte packing,
   5. CRC24 over all 42 prefix lengths with the verdict selected at the
      data-dependent payload length.
+
+On CUDA tensors, steps 1-2 run the narrowband scan kernel
+(phy.scan_kernel) and steps 4-5 the candidate decode kernel
+(rx.decode_kernel, with the XLA decode's clamped gathers); on CPU
+tensors both run their plain twins.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..phy.demodulator import aa_match_counts, decisions
+from ..phy.scan_kernel import scan_block  # noqa: F401  (steps 1-2)
 from ..spec.constants import MAX_PDU_CRC_BITS, MAX_PDU_CRC_BYTE
 from ..spec.crc24 import CRC24_TABLE
 
@@ -29,16 +34,6 @@ _BIG = np.iinfo(np.int32).max // 2
 def required_halo(sps: int, lag: int) -> int:
     """Samples needed beyond a hit position to decode a max-length packet."""
     return (AA_BITS + MAX_PDU_CRC_BITS) * sps + lag
-
-
-def scan_block(i, q, aa_bits, aa_mask, sps: int, lag: int):
-    """(hit_mask, bit_lattice) for (C, N) IQ blocks. hit_mask[c, n] is
-    True iff an access address starts at lattice position n (all unmasked
-    AA bits match with symbol stride sps)."""
-    bits = decisions(i, q, lag)
-    counts = aa_match_counts(bits, aa_bits, aa_mask, sps)
-    n_mask = int(torch.as_tensor(aa_mask).to(torch.int32).sum())
-    return counts == n_mask, bits
 
 
 def decode_window(dew: torch.Tensor, crc_init, adv_flag):
@@ -153,10 +148,12 @@ def decode_block(i, q, aa_bits, aa_mask, whiten, crc_init, adv_flag,
     (32,) per-bit care mask; whiten (C, 336); crc_init (C,) table-form;
     adv_flag (C,) advertising (6-bit length) vs data channel.
     """
+    from .decode_kernel import decode_candidates
+
     hit, bits = scan_block(i, q, aa_bits, aa_mask, sps, lag)
     pos, valid, num_hits = earliest_hits(hit, max_candidates, min_pos)
-    plen, crc_match, pkt_bytes, len_ok, _ = _decode_candidate(
-        pos, bits, whiten, crc_init, adv_flag, sps)
+    pkt_bytes, plen, crc_match, len_ok = decode_candidates(
+        bits, pos, whiten, crc_init, adv_flag, sps=sps, clamp_tail=True)
 
     # RSSI statistic: mean(|I|+|Q|) over the 32-symbol AA window
     # (btle_rx.c:2234-2252), over integer samples as the XLA path takes
@@ -183,6 +180,40 @@ def decode_block(i, q, aa_bits, aa_mask, whiten, crc_init, adv_flag,
         "mag_mean": mag_mean,
         "num_hits": num_hits,
     }
+
+
+PACK_KEYS = ("pos", "valid", "payload_len", "len_ok", "crc_ok", "pdu_bytes",
+             "mag_mean", "num_hits")
+
+
+def pack_candidates(out: dict):
+    """Flatten a candidate dict into ONE int32 vector on its device (floats
+    ride as bit patterns), so a block costs one device-to-host copy.
+    Returns (packed, {key: (shape, numpy dtype)})."""
+    segs, layout = [], {}
+    for k in PACK_KEYS:
+        v = out[k]
+        layout[k] = (tuple(v.shape), np.float32 if v.dtype == torch.float32
+                     else np.bool_ if v.dtype == torch.bool else np.int32)
+        v32 = (v.view(torch.int32) if v.dtype == torch.float32
+               else v.to(torch.int32))
+        segs.append(v32.reshape(-1))
+    return torch.cat(segs), layout
+
+
+def unpack_candidates(buf: np.ndarray, layout: dict) -> dict:
+    """Inverse of pack_candidates on the host copy: {key: numpy array}."""
+    out, off = {}, 0
+    for k, (shape, dtype) in layout.items():
+        n = int(np.prod(shape))
+        v = buf[off: off + n].reshape(shape)
+        if dtype == np.float32:
+            v = v.view(np.float32)
+        elif dtype == np.bool_:
+            v = v.astype(bool)
+        out[k] = v
+        off += n
+    return out
 
 
 def rssi_dbm_from_mag(mag_mean: float) -> int:

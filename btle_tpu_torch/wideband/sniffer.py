@@ -18,7 +18,8 @@ import torch
 from .._device import as_tensor, resolve_device
 from ..convert import scan_tables_from_numpy
 from ..ll.pdu import parse_adv_header, parse_adv_payload, parse_ll_header, parse_ll_payload
-from ..rx.pipeline import decode_block, required_halo
+from ..rx.pipeline import (decode_block, pack_candidates, required_halo,
+                           unpack_candidates)
 from ..spec import bits as B
 from ..spec import crc24 as C
 from ..spec import whitening as W
@@ -185,10 +186,6 @@ class WidebandSniffer:
     """Streaming 40-channel sniffer over wideband blocks, on ``device``
     (cuda unless the caller passes another)."""
 
-    # fixed key order for the single-copy output packing (below)
-    _PACK_KEYS = ("pos", "valid", "payload_len", "len_ok", "crc_ok",
-                  "pdu_bytes", "mag_mean", "num_hits")
-
     def __init__(self, cfg: WidebandConfig | None = None, device=None):
         self.cfg = cfg or WidebandConfig()
         cfg = self.cfg
@@ -279,36 +276,6 @@ class WidebandSniffer:
                     cutoff_mhz=self.cfg.resolved_cutoff_mhz,
                     device=self.device)
 
-    @classmethod
-    def _pack_outputs(cls, out):
-        """Flatten the candidate dict into ONE int32 vector on the device
-        (floats ride as bit patterns), so a block costs one device-to-host
-        copy. Returns (packed, {key: (shape, numpy dtype)})."""
-        segs, layout = [], {}
-        for k in cls._PACK_KEYS:
-            v = out[k]
-            layout[k] = (tuple(v.shape), np.float32 if v.dtype == torch.float32
-                         else np.bool_ if v.dtype == torch.bool else np.int32)
-            v32 = (v.view(torch.int32) if v.dtype == torch.float32
-                   else v.to(torch.int32))
-            segs.append(v32.reshape(-1))
-        return torch.cat(segs), layout
-
-    @staticmethod
-    def _unpack_outputs(buf, shapes_dtypes):
-        out = {}
-        off = 0
-        for k, (shape, dtype) in shapes_dtypes.items():
-            n = int(np.prod(shape))
-            v = buf[off : off + n].reshape(shape)
-            if dtype == np.float32:
-                v = v.view(np.float32)
-            elif dtype == np.bool_:
-                v = v.astype(bool)
-            out[k] = v
-            off += n
-        return out
-
     def _fetch(self, packed):
         """Start the device-to-host copy of a packed vector: into pinned
         memory, non-blocking, with an event to wait on (CUDA); the tensor
@@ -363,7 +330,7 @@ class WidebandSniffer:
                                       **self._scan_kwargs())
         else:
             out = wideband_scan(*args, **self._scan_kwargs())
-        packed, layout = self._pack_outputs(out)
+        packed, layout = pack_candidates(out)
         host, done = self._fetch(packed)
         # snapshot the keys THIS scan used
         return {"host": host, "done": done, "layout": layout,
@@ -374,7 +341,7 @@ class WidebandSniffer:
     def _wait(self, host, done, layout):
         if done is not None:
             done.synchronize()
-        return self._unpack_outputs(host.numpy(), layout)
+        return unpack_candidates(host.numpy(), layout)
 
     def consume_scan(self, handle) -> list[WidebandPacket]:
         """Wait for + walk one scan_async() handle (in dispatch order)."""
@@ -401,7 +368,7 @@ class WidebandSniffer:
                     num_taps=self.cfg.num_taps, has_context=True,
                     cutoff_mhz=self.cfg.resolved_cutoff_mhz,
                     device=self.device)
-                packed, layout = self._pack_outputs(more)
+                packed, layout = pack_candidates(more)
                 more = self._wait(*self._fetch(packed), layout)
                 exhausted = self._consume_channel(m, more, scan_limit, packets)
                 if self._cursors[m] == before:

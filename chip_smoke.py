@@ -11,21 +11,37 @@ JSON line per phase:
      parallel) and each kernel's ptxas register / shared-memory report;
   2. kernels: each kernel against its plain PyTorch twin on the card, on
      one bench-geometry block with packets in it (131072 + 1476 channel
-     samples, 1280-tap prototype, 16 candidate slots);
+     samples, 1280-tap prototype, 16 candidate slots); the narrowband
+     scan on a 131072 + 1473-sample int16 block at sps 4 / lag 1, at
+     sps 8 / lag 8, with an all-zero care mask and on the 40 float
+     channel rows of the wideband block with per-row access addresses;
+     the candidate decode with clamped tails on candidates at the
+     lattice's end;
   3. self-test: the known-answer self-test in both fused modes;
   4. main path: WidebandSniffer(fused=True).run() over a 4-block
      (131 ms) scene with ADV and LL data packets, a packet across a block
      boundary and a channel with more packets than candidate slots, in
      "bf16x2w" and in "f32"; every injected packet must decode CRC-OK and
      byte-exact on its channel, no other CRC-OK packet may appear, and
-     every kernel of the mode must have launched;
-  5. timing: wideband_scan_fused over 8 distinct device-resident noise
+     every kernel of the mode must have launched (the slot-overflow
+     rescans run the narrowband scan and the candidate decode);
+  5. narrowband main path: Sniffer(channel 37, sps 4, hop, rssi, NDJSON
+     and pcap) over 1 s of air at 4 Msps (ADV traffic, a CONNECT_REQ,
+     then data packets on the hop sequence) at the file block size
+     (131072) and the live one (8192): every scheduled packet CRC-OK and
+     byte-exact, no other, hop events track_start then chan_change, the
+     same events at both sizes, the narrowband scan and the candidate
+     decode launched; golden_decode at sps 8 on one packet;
+  6. CLI: ``python -m btle_tpu_torch.cli decode --json`` on the scene
+     written as an i16 file; its NDJSON must equal the library run's;
+  7. timing: wideband_scan_fused over 8 distinct device-resident noise
      blocks (as bench.py), median Msps per mode; per-kernel time, its
      twin's time, the bound, and for each filterbank one cuDNN
-     convolution computing the same y as yardstick;
-     then a torch.profiler trace of 8 scan steps per mode: device time
-     by kernel and the device's idle share;
-  6. the {"kernels": [...]} summary.
+     convolution computing the same y as yardstick; the narrowband
+     real-time factor (air seconds per wall second, median of 3 runs)
+     at both block sizes; then a torch.profiler trace of 8 scan steps
+     per mode: device time by kernel and the device's idle share;
+  8. the {"kernels": [...]} summary.
 
 The last two lines are the card's name and power limit as nvidia-smi
 reports them, then {"ok": true, "device": {...}}. Without a CUDA device
@@ -34,20 +50,40 @@ it exits non-zero before printing anything. Any failed check raises.
 
 from __future__ import annotations
 
+import io
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
+ROOT = Path(__file__).resolve().parent
 SCAN_LEN = 131072
 MAX_CANDIDATES = 16
 NUM_TAPS = 1280
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # dense tensor-core bf16
 FP32_FLOPS = 67e12              # CUDA-core fp32 (also counted for int ops)
+
+# narrowband scene: 1 s of air at 4 Msps on channel 37, int16 at a
+# realistic receiver amplitude (full scale 32767) plus Gaussian noise
+NB_SPS = 4
+NB_SAMPLES = 4_000_000
+NB_LIVE_SCAN_LEN = 8192         # the CLI's stdin default; SCAN_LEN is its file default
+NB_AMPLITUDE = 2000.0
+NB_NOISE_STD = 40.0
+ADV_AA = 0x8E89BED6
+CONN_AA = 0x60850A1B
+CONN_CRC_HEX = "a77b22"
+CONN_HOP = 9
+# 40 x 1.25 ms = 50 ms: the hop tracker ticks once per block, and at the
+# file block size (32.768 ms) it can follow only intervals of about 40 ms
+# and more at every block size alike
+CONN_INTERVAL = 40
+HOP_GUARD_US = 7000             # ll.hop.GUARD_US
 
 
 def log(obj) -> None:
@@ -113,6 +149,88 @@ def main_path_plan():
             (12, step - 8_000)]
     plan += [(25, step + 60_000 + 110_000 * k) for k in range(22)]
     return plan, 3 * step + block_samples()
+
+
+def nb_burst(pdu, ch: int, aa: int = ADV_AA, crc_hex: str = "555555",
+             sps: int = NB_SPS, amplitude: float = NB_AMPLITUDE):
+    """A narrowband burst of the PDU bytes on channel ch: (i, q) float."""
+    from btle_tpu_torch.golden import assemble_phy_bits, gfsk_modulate_float
+    from btle_tpu_torch.spec.bits import bytes_to_bits
+
+    bits = assemble_phy_bits(bytes_to_bits(np.asarray(pdu, np.uint8)), ch,
+                             crc_init_hex=crc_hex,
+                             access_address_hex=aa.to_bytes(4, "little").hex())
+    return gfsk_modulate_float(bits, sps, amplitude)
+
+
+def connect_req_pdu() -> np.ndarray:
+    """CONNECT_REQ to CONN_AA / CONN_CRC_HEX, hop CONN_HOP, interval
+    CONN_INTERVAL, all 37 data channels used (tests/test_hop.py's)."""
+    payload = (bytes.fromhex("001830EA965F")[::-1] + bytes.fromhex("90D7EBB19299")[::-1]
+               + CONN_AA.to_bytes(4, "little") + bytes.fromhex(CONN_CRC_HEX)
+               + bytes([0x02]) + (0x000F).to_bytes(2, "little")
+               + CONN_INTERVAL.to_bytes(2, "little") + (0).to_bytes(2, "little")
+               + (0x07D0).to_bytes(2, "little") + bytes.fromhex("1FFFFFFFFF")[::-1]
+               + bytes([CONN_HOP | (5 << 5)]))
+    return np.frombuffer(bytes([0x05, len(payload)]) + payload, np.uint8)
+
+
+def narrowband_scene(seed: int = 7):
+    """1 s of air at 4 Msps on channel 37: ADV_NONCONN_IND packets of 6-37
+    payload bytes every 10 ms for 450 ms (one across the third
+    131072-sample block boundary), a CONNECT_REQ, then LL data packets on
+    the connection's hop sequence (9, 18, 27, ...). Each data packet lies
+    just after the first 131072-sample boundary at which the hop tracker
+    retunes (more than interval - 7 ms after the previous packet): that
+    boundary is also an 8192-sample one, so the packet is in reach at
+    both block sizes. Returns (i, q int16, [(channel, access address,
+    pdu bytes)] in air order)."""
+    rng = np.random.default_rng(seed)
+    plan = []
+    for k in range(45):
+        payload = rng.integers(0, 256, 6 + (7 * k) % 32, dtype=np.uint8)
+        plan.append((2000 + 40_000 * k, 37, ADV_AA, "555555",
+                     np.concatenate([[0x02, len(payload)], payload])))
+    payload = rng.integers(0, 256, 37, dtype=np.uint8)
+    plan.append((3 * SCAN_LEN - 600, 37, ADV_AA, "555555",
+                 np.concatenate([[0x02, 37], payload])))
+    conn_pos = 1_802_000
+    plan.append((conn_pos, 37, ADV_AA, "555555", connect_req_pdu()))
+    interval_samples = (CONN_INTERVAL * 1250 - HOP_GUARD_US + 1000) * NB_SPS
+    pos, hop_chan, wait = conn_pos, 0, 0
+    while True:
+        boundary = ((pos + wait) // SCAN_LEN + 1) * SCAN_LEN
+        pos = boundary + 2000 + int(rng.integers(0, 4000))
+        if pos > NB_SAMPLES - 2 * SCAN_LEN:
+            break
+        hop_chan = (hop_chan + CONN_HOP) % 37
+        payload = rng.integers(0, 256, int(rng.integers(2, 28)), dtype=np.uint8)
+        plan.append((pos, hop_chan, CONN_AA, CONN_CRC_HEX,
+                     np.concatenate([[0x01, len(payload)], payload])))
+        wait = interval_samples
+    i = rng.normal(0, NB_NOISE_STD, NB_SAMPLES)
+    q = rng.normal(0, NB_NOISE_STD, NB_SAMPLES)
+    want = []
+    for pos, ch, aa, crc_hex, pdu in sorted(plan, key=lambda p: p[0]):
+        ci, cq = nb_burst(pdu, ch, aa, crc_hex)
+        i[pos:pos + len(ci)] += ci
+        q[pos:pos + len(cq)] += cq
+        want.append((ch, aa, pdu.astype(np.uint8).tobytes()))
+    clip = lambda x: np.clip(np.round(x), -32768, 32767).astype(np.int16)
+    return clip(i), clip(q), want
+
+
+def pcap_records(raw: bytes):
+    """[(channel, access address, pdu bytes)] of a PcapWriter stream."""
+    import struct
+
+    out, off = [], 24
+    while off + 16 <= len(raw):
+        caplen = struct.unpack(">IIII", raw[off:off + 16])[2]
+        rec = raw[off + 16:off + 16 + caplen]
+        off += 16 + caplen
+        out.append((rec[0], struct.unpack("<I", rec[10:14])[0], bytes(rec[14:])))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -210,7 +328,7 @@ def check_kernels(dev):
                 raise AssertionError("decode_candidates disagrees with its twin")
             dec_err = max(dec_err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
     report["decode_candidates"] = {"max_abs_err": dec_err, "ok": True}
-    return report, operands, (bits, pos, whiten, crc, adv), library
+    return report, operands, (bits, pos, whiten, crc, adv), library, (xi, xq, aa, mask)
 
 
 def filterbank_library_calls(xi, xq, operands) -> dict:
@@ -275,10 +393,247 @@ def run_main_path(dev, mode: str, wi, wq, injected, kernels):
     if sn.truncated_channels < 1:
         raise AssertionError("slot overflow never forced a rescan")
     needed = {"bf16x2w": "filterbank_bf16x2w", "f32": "filterbank_polyx_f32"}
-    for name in (needed[mode], "demod_tail", "decode_candidates"):
+    for name in (needed[mode], "demod_tail", "decode_candidates", "scan_block"):
         if launches[name] <= 0:
             raise AssertionError(f"main path ({mode}) never launched {name}")
     return launches
+
+
+def sniff_narrowband(dev, i, q, scan_len: int):
+    """One Sniffer run over the narrowband scene with NDJSON and pcap to
+    memory: (sniffer, events, ndjson text, pcap bytes, wall seconds)."""
+    import torch
+
+    from btle_tpu_torch.stream import (NdjsonEmitter, PcapWriter, Sniffer,
+                                       SnifferConfig, array_source)
+
+    buf, pc = io.StringIO(), io.BytesIO()
+    sn = Sniffer(SnifferConfig(channel=37, sps=NB_SPS, hop=True, rssi=True,
+                               scan_len=scan_len),
+                 ndjson=NdjsonEmitter(buf), pcap=PcapWriter(pc),
+                 quiet_text=True, device=dev)
+    t0 = time.perf_counter()
+    events = sn.run(array_source(i, q))
+    torch.cuda.synchronize()
+    return sn, events, buf.getvalue(), pc.getvalue(), time.perf_counter() - t0
+
+
+def ndjson_without_ts(text: str) -> list:
+    out = []
+    for line in text.splitlines():
+        obj = json.loads(line)
+        obj.pop("ts")
+        out.append(obj)
+    return out
+
+
+def run_narrowband(dev, i, q, want, kernels) -> dict:
+    """Phase 5: the narrowband Sniffer at both block sizes, each with the
+    launch counts zeroed just before and read just after."""
+    runs = {}
+    for scan_len in (SCAN_LEN, NB_LIVE_SCAN_LEN):
+        for k in kernels:
+            k.launches = 0
+        sn, events, ndjson, pcap, seconds = sniff_narrowband(dev, i, q, scan_len)
+        launches = {k.name: k.launches for k in kernels}
+        recs = pcap_records(pcap)
+        if len(recs) != len(events):
+            raise AssertionError("pcap records and packet events differ in number")
+        got = [r for e, r in zip(events, recs) if e.crc_ok]
+        hop = [e.event for e in sn.hop_tracker.events]
+        missing = [w for w in want if w not in got]
+        extra = [g for g in got if g not in want]
+        line = {"phase": "narrowband_main_path", "scan_len": scan_len,
+                "air_s": NB_SAMPLES / (NB_SPS * 1e6), "seconds": seconds,
+                "scheduled": len(want), "events": len(events),
+                "crc_ok": len(got), "missing": len(missing),
+                "extra": len(extra), "hop_events": hop[:4],
+                "n_hop_events": len(hop), "launches": launches}
+        log(line)
+        if got != want:
+            raise AssertionError(f"narrowband ({scan_len}): missing {missing[:3]}, "
+                                 f"extra {extra[:3]}")
+        if hop[:2] != ["track_start", "chan_change"]:
+            raise AssertionError(f"narrowband ({scan_len}): hop events {hop[:4]}")
+        for name in ("scan_block", "decode_candidates"):
+            if launches[name] <= 0:
+                raise AssertionError(f"narrowband ({scan_len}) never launched {name}")
+        runs[scan_len] = {
+            "events": [(e.ts_us, e.pkt_count, e.channel, e.access_addr, e.crc_ok,
+                        e.payload_bytes, e.rssi_dbm) for e in events],
+            "ndjson": ndjson, "launches": launches}
+    pkt_lines = [[o for o in ndjson_without_ts(r["ndjson"]) if o["t"] == "pkt"]
+                 for r in runs.values()]
+    if runs[SCAN_LEN]["events"] != runs[NB_LIVE_SCAN_LEN]["events"] \
+            or pkt_lines[0] != pkt_lines[1]:
+        raise AssertionError("the narrowband event lists differ between block sizes")
+
+    return runs
+
+
+def run_golden(dev, scan_block_kernel) -> dict:
+    """golden_decode (lag = sps = 8) on one ADV_IND: CRC-OK, byte-exact,
+    through the scan kernel."""
+    from btle_tpu_torch.rx.decoder import golden_decode
+    from btle_tpu_torch.spec.bits import bits_to_bytes
+
+    rng = np.random.default_rng(8)
+    pdu = np.concatenate([[0x00, 20], rng.integers(0, 256, 20)]).astype(np.uint8)
+    ci, cq = nb_burst(pdu, 37, sps=8, amplitude=127.0)
+    gi, gq = (np.round(np.concatenate([np.zeros(900), c, np.zeros(900)])
+                       + rng.normal(0, 3, len(c) + 1800)).astype(np.int16)
+              for c in (ci, cq))
+    scan_block_kernel.launches = 0
+    res = golden_decode(gi, gq, 37, sps=8, device=dev)
+    golden = {"crc_ok": res.crc_ok, "payload_len": res.payload_len,
+              "best_phase": res.best_phase,
+              "byte_exact": bits_to_bytes(res.pdu_bits).tobytes() == pdu.tobytes(),
+              "scan_block_launches": scan_block_kernel.launches}
+    log({"phase": "golden_decode", "sps": 8, **golden})
+    if not (res.crc_ok and golden["byte_exact"] and golden["scan_block_launches"]):
+        raise AssertionError(f"golden_decode at sps 8: {golden}")
+    return golden
+
+
+def run_cli(i, q, library_ndjson: str) -> dict:
+    """Phase 6: the decode CLI on the scene as an i16 file, in a child
+    process on the card; its NDJSON must equal the library run's at the
+    file block size (timestamps aside)."""
+    path = ROOT / "build" / "chip_smoke" / "narrowband.i16"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.stack([i, q], axis=1).reshape(-1).tofile(path)
+    cmd = [sys.executable, "-m", "btle_tpu_torch.cli", "decode", "--bin",
+           str(path), "--format", "i16", "--channel", "37", "--sps", "4",
+           "--hop", "--rssi", "--json"]
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        seconds = time.perf_counter() - t0
+    finally:
+        path.unlink()
+    lines = ndjson_without_ts(proc.stdout) if proc.returncode == 0 else []
+    want = ndjson_without_ts(library_ndjson)
+    line = {"phase": "cli", "rc": proc.returncode, "seconds": seconds,
+            "lines": len(lines), "pkt_lines": sum(o["t"] == "pkt" for o in lines),
+            "equal_to_library": lines == want,
+            "summary": proc.stderr.strip().splitlines()[-1:]}
+    log(line)
+    if proc.returncode != 0 or lines != want:
+        raise AssertionError(f"decode CLI: rc {proc.returncode}, stderr "
+                             f"{proc.stderr[-2000:]}")
+    return line
+
+
+def check_narrowband_kernels(dev, nb_block, wb_operands) -> dict:
+    """Phase 2, narrowband part: the scan kernel against its twin (exact)
+    on the int16 narrowband block at sps 4 / lag 1, on it with an all-zero
+    care mask, at sps 8 / lag 8, and on the wideband block's 40 float
+    channel rows with per-row access addresses; the candidate decode with
+    clamped tails against its twin on candidates at the lattice's end."""
+    import torch
+
+    from btle_tpu_torch.phy.scan_kernel import scan_block_kernel, scan_block_reference
+    from btle_tpu_torch.rx.decode_kernel import decode_candidates, decode_candidates_reference
+    from btle_tpu_torch.rx.pipeline import earliest_hits
+    from btle_tpu_torch.spec.bits import hex_to_bits
+    from btle_tpu_torch.spec.crc24 import lfsr_init_to_table_init
+    from btle_tpu_torch.spec.whitening import whitening_bits
+    from btle_tpu_torch.wideband.channelizer import channelize
+
+    ni, nq = (torch.as_tensor(a, device=dev) for a in nb_block)
+    adv_aa = torch.as_tensor(hex_to_bits("d6be898e"), device=dev)
+    ones = torch.ones(32, dtype=torch.int8, device=dev)
+    rng = np.random.default_rng(3)
+    gi = np.round(rng.normal(0, 3, 60_000)).astype(np.int16)
+    gq = np.round(rng.normal(0, 3, 60_000)).astype(np.int16)
+    for pos in (4000, 30_000):
+        payload = rng.integers(0, 256, 18, dtype=np.uint8)
+        ci, cq = nb_burst(np.concatenate([[0x02, 18], payload]), 37, sps=8,
+                          amplitude=127.0)
+        gi[pos:pos + len(ci)] += np.round(ci).astype(np.int16)
+        gq[pos:pos + len(cq)] += np.round(cq).astype(np.int16)
+    wi, wq, aa_rows, mask = wb_operands
+    yi, yq = channelize(wi, wq, num_taps=NUM_TAPS, has_context=True, device=dev)
+    aa_rows = aa_rows.expand(yi.shape[0], 32).clone()
+    aa_rows[::4] = torch.as_tensor(rng.integers(0, 2, (10, 32)), device=dev)
+    cases = {
+        "int16_sps4_lag1": (ni, nq, adv_aa, ones, 4, 1),
+        "int16_zero_mask": (ni, nq, adv_aa, torch.zeros_like(ones), 4, 1),
+        "int16_sps8_lag8": (torch.as_tensor(gi, device=dev),
+                            torch.as_tensor(gq, device=dev), adv_aa, ones, 8, 8),
+        "float_rows_40": (yi, yq, aa_rows, mask, 4, 4),
+    }
+    report = {}
+    for name, args in cases.items():
+        hit, bits = scan_block_kernel(*args)
+        want = scan_block_reference(*args)
+        torch.cuda.synchronize()
+        n_bad = int((hit != want[0]).sum()) + int((bits != want[1]).sum())
+        report[name] = {"shape": list(args[0].shape), "hits": int(want[0].sum()),
+                        "mismatches": n_bad}
+        if n_bad:
+            raise AssertionError(f"scan_block ({name}) disagrees with its twin "
+                                 f"at {n_bad} positions")
+        if name == "int16_zero_mask" and not bool(hit.all()):
+            raise AssertionError("an all-zero care mask must hit everywhere")
+    if report["int16_sps4_lag1"]["hits"] < 3 or report["int16_sps8_lag8"]["hits"] < 2 \
+            or report["float_rows_40"]["hits"] < 4:
+        raise AssertionError(f"too few access-address hits: {report}")
+
+    hit, bits = scan_block_kernel(*cases["int16_sps4_lag1"])
+    pos, _, _ = earliest_hits(hit[None], 24)
+    kb = bits.shape[-1]
+    pos[0, -8:] = torch.as_tensor(kb - 1 - rng.integers(0, 1500, 8), device=dev)
+    pos[0, -1] = kb + 7
+    whiten = torch.tensor(whitening_bits(37, 336)[None], device=dev)
+    crc = torch.tensor([lfsr_init_to_table_init("555555")], dtype=torch.int32,
+                       device=dev)
+    adv = torch.tensor([True], device=dev)
+    dec_args = (bits[None], pos, whiten, crc, adv)
+    got = decode_candidates(*dec_args, sps=4, clamp_tail=True)
+    want = decode_candidates_reference(*dec_args, sps=4, clamp_tail=True)
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError("decode_candidates (clamp_tail) disagrees with its twin")
+    n_ok = int((got[2] & got[3]).sum())
+    report["decode_candidates_clamp_tail"] = {"candidates": int(pos.numel()),
+                                              "crc_ok": n_ok, "mismatches": 0}
+    if n_ok < 3:
+        raise AssertionError(f"only {n_ok} CRC-OK candidates in the narrowband block")
+    return report, cases["int16_sps4_lag1"]
+
+
+def time_scan_kernel(args) -> dict:
+    """K7 at the narrowband block: device time, twin time and its bound
+    (i and q read once, bits and hits written once; per decision two
+    products and a difference, per hit position 32 gathered bits, an xor,
+    an and and a compare)."""
+    from btle_tpu_torch.phy.scan_kernel import SCAN_BLOCK, scan_block_kernel, scan_block_reference
+
+    i = args[0]
+    sps, lag = args[4], args[5]
+    n = i.shape[-1]
+    n_bits, n_hit = n - lag, n - lag - 31 * sps
+    return {**kernel_times(SCAN_BLOCK, lambda: scan_block_kernel(*args),
+                           lambda: scan_block_reference(*args), 50),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                2 * n * i.element_size() + 64 + n_bits + n_hit,
+                4 * n_bits + (2 * 32 + 3) * n_hit, FP32_FLOPS)))}
+
+
+def narrowband_rtf(dev, i, q) -> dict:
+    """Air seconds per wall second of the narrowband Sniffer (outputs to
+    memory), median of 3 runs at each block size."""
+    air = NB_SAMPLES / (NB_SPS * 1e6)
+    out = {}
+    for scan_len in (SCAN_LEN, NB_LIVE_SCAN_LEN):
+        secs = [sniff_narrowband(dev, i, q, scan_len)[4] for _ in range(3)]
+        med = statistics.median(secs)
+        out[str(scan_len)] = {"seconds": secs, "median_s": med,
+                              "realtime_factor": air / med,
+                              "ms_per_block": 1e3 * med / -(-NB_SAMPLES // scan_len)}
+    return out
 
 
 def scan_step(dev, mode: str, tables):
@@ -322,26 +677,20 @@ def time_scan(dev, mode: str, blocks, tables) -> dict:
             "checksum": float(checksum)}
 
 
-def profile_scan(dev, mode: str, blocks, tables) -> dict:
-    """torch.profiler over 8 scan steps: device time per block by kernel
-    name, and the device's idle share of the window between the first
-    and the last device activity."""
+def device_profile(run, n: int) -> dict:
+    """torch.profiler over run() (n blocks): device time per block by
+    kernel name, and the device's idle share of the window between the
+    first and the last device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step = scan_step(dev, mode, tables)
-    for b in blocks[:2]:
-        step(*b)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for b in blocks:
-            step(*b)
+        run()
         torch.cuda.synchronize()
-    n = len(blocks)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if "CUDA" in str(getattr(e, "device_type", "")))
     if not spans:
-        return {"mode": mode, "device_time": "not measured"}
+        return {"device_time": "not measured"}
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -358,9 +707,30 @@ def profile_scan(dev, mode: str, blocks, tables) -> dict:
             top.append({"name": ev.key[:90], "ms_per_block": t / 1e3 / n,
                         "calls_per_block": ev.count / n})
     top.sort(key=lambda r: -r["ms_per_block"])
-    return {"mode": mode, "blocks": n, "device_busy_ms_per_block": busy / 1e3 / n,
+    return {"blocks": n, "device_busy_ms_per_block": busy / 1e3 / n,
             "window_ms_per_block": window / 1e3 / n,
             "idle_share": 1.0 - busy / window, "top": top[:12]}
+
+
+def profile_scan(dev, mode: str, blocks, tables) -> dict:
+    """device_profile of 8 wideband scan steps."""
+    import torch
+
+    step = scan_step(dev, mode, tables)
+    for b in blocks[:2]:
+        step(*b)
+    torch.cuda.synchronize()
+    return {"mode": mode, **device_profile(
+        lambda: [step(*b) for b in blocks], len(blocks))}
+
+
+def profile_narrowband(dev, i, q) -> dict:
+    """device_profile of the narrowband Sniffer over the first 0.25 s of
+    the scene (ADV traffic) at each block size."""
+    n = NB_SAMPLES // 4
+    return {str(scan_len): device_profile(
+        lambda s=scan_len: sniff_narrowband(dev, i[:n], q[:n], s),
+        -(-n // scan_len)) for scan_len in (SCAN_LEN, NB_LIVE_SCAN_LEN)}
 
 
 def bound(nbytes: float, ops: float, rate: float):
@@ -462,12 +832,14 @@ def main() -> int:
     import torch
 
     from btle_tpu_torch import _build
+    from btle_tpu_torch.phy import scan_kernel
     from btle_tpu_torch.rx import decode_kernel
     from btle_tpu_torch.wideband import fused
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from btle_tpu_torch.rx.pipeline import required_halo
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -478,7 +850,8 @@ def main() -> int:
          "count": torch.cuda.device_count()})
 
     kernels = [fused.FILTERBANK_BF16X2W, fused.FILTERBANK_POLYX_F32,
-               fused.DEMOD_TAIL, decode_kernel.DECODE_CANDIDATES]
+               fused.DEMOD_TAIL, decode_kernel.DECODE_CANDIDATES,
+               scan_kernel.SCAN_BLOCK]
     t0 = time.perf_counter()
     logs = _build.build([k.name for k in kernels])
     seconds = time.perf_counter() - t0
@@ -487,7 +860,12 @@ def main() -> int:
              for n, text in logs.items()}
     log({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
-    report, operands, decode_args, library = check_kernels(dev)
+    report, operands, decode_args, library, wb_operands = check_kernels(dev)
+    nb_i, nb_q, nb_want = narrowband_scene()
+    nb_block = (nb_i[:SCAN_LEN + required_halo(NB_SPS, 1)],
+                nb_q[:SCAN_LEN + required_halo(NB_SPS, 1)])
+    nb_report, nb_scan_args = check_narrowband_kernels(dev, nb_block, wb_operands)
+    report["scan_block"] = {"max_abs_err": 0, "ok": True, **nb_report}
     log({"phase": "kernels_vs_twins", **report})
 
     from btle_tpu_torch.wideband import fused_selftest
@@ -507,6 +885,13 @@ def main() -> int:
             launches[name] += n
     del wi, wq
 
+    nb_runs = run_narrowband(dev, nb_i, nb_q, nb_want, kernels)
+    for run in nb_runs.values():
+        for name, n in run["launches"].items():
+            launches[name] += n
+    run_golden(dev, scan_kernel.SCAN_BLOCK)
+    run_cli(nb_i, nb_q, nb_runs[SCAN_LEN]["ndjson"])
+
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
     tables = default_scan_tables(dev)
@@ -517,11 +902,18 @@ def main() -> int:
     scans = {mode: time_scan(dev, mode, blocks, tables)
              for mode in ("bf16x2w", "f32")}
     per_kernel = time_kernels(operands, decode_args, library)
-    log({"phase": "timing", "scan": scans, "kernels": per_kernel})
+    per_kernel["scan_block"] = time_scan_kernel(nb_scan_args)
+    rtf = narrowband_rtf(dev, nb_i, nb_q)
+    log({"phase": "timing", "scan": scans, "kernels": per_kernel,
+         "narrowband": rtf})
     for mode in ("bf16x2w", "f32"):
         log({"phase": "profile", **profile_scan(dev, mode, blocks, tables)})
     del blocks
+    log({"phase": "profile_narrowband", **profile_narrowband(dev, nb_i, nb_q)})
 
+    idle = [name for name, n in launches.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main paths: {idle}")
     log({"kernels": [{
         "name": k.name, "route": "cuda", "source": k.source,
         "replaces": k.replaces, "launches": launches[k.name],

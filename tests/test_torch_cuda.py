@@ -4,22 +4,29 @@ Marked ``cuda``: each test skips without a CUDA device (decided inside
 the fixture). chip_smoke.py checks the kernels at bench geometry; these
 cover the other shapes the kernels take — lag 1 (odd-bin decision
 flip), sps 2 (LE 2M), the 640-tap prototype, a ragged block length,
-per-channel AA rows with care-mask holes, candidate windows past the
-lattice end — and the port's device path against its CPU path. They
-import no JAX, so they run where only the port is installed:
+per-channel AA rows with care-mask holes, an all-zero care mask, float
+channel rows in the narrowband scan, candidate windows past the lattice
+end in both tail modes — and the port's device path against its CPU
+path (wideband and narrowband sniffers). They import no JAX, so they
+run where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import io
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from btle_tpu_torch import stream as S
 from btle_tpu_torch.golden import assemble_phy_bits, gfsk_modulate_float
+from btle_tpu_torch.phy.scan_kernel import SCAN_BLOCK, scan_block_kernel, scan_block_reference
 from btle_tpu_torch.rx.decode_kernel import (DECODE_CANDIDATES, decode_candidates,
                                              decode_candidates_reference)
 from btle_tpu_torch.spec import bits as B
+from btle_tpu_torch.spec import whitening as W
 from btle_tpu_torch.wideband import WidebandConfig, WidebandSniffer, fused_selftest
 from btle_tpu_torch.wideband import fused
 from btle_tpu_torch.wideband.channelizer import bin_to_channel, channel_to_bin, compose_wideband
@@ -160,3 +167,169 @@ def test_wrappers_reject_bad_operands(dev):
         fused.filterbank_bf16x2w(y[:40].to(torch.float32),
                                  torch.zeros((5, 160, 520), dtype=torch.bfloat16,
                                              device=dev), 65, 3000)
+
+
+# --------------------------------------------------------------------------
+# the narrowband scan (K7), K4's clamped tail, the narrowband Sniffer
+# --------------------------------------------------------------------------
+
+
+ADV_AA_HEX = "d6be898e"
+CONN_AA = 0x60850A1B
+CONN_AA_HEX = "1b0a8560"          # on-air order of CONN_AA
+CONN_CRC_HEX = "a77b22"
+
+
+def _nb_burst(pdu, ch, sps=4, amplitude=2000.0, aa_hex=ADV_AA_HEX,
+              crc_hex="555555"):
+    bits = assemble_phy_bits(B.bytes_to_bits(np.asarray(pdu, np.uint8)), ch,
+                             crc_init_hex=crc_hex, access_address_hex=aa_hex)
+    return gfsk_modulate_float(bits, sps, amplitude)
+
+
+def _nb_scene(seed, n, bursts, noise=40.0):
+    """int16 (i, q): Gaussian noise plus each (pos, (ci, cq)) burst."""
+    rng = np.random.default_rng(seed)
+    i, q = rng.normal(0, noise, (2, n))
+    for pos, (ci, cq) in bursts:
+        m = min(len(ci), n - pos)
+        i[pos:pos + m] += ci[:m]
+        q[pos:pos + m] += cq[:m]
+    clip = lambda x: np.clip(np.round(x), -32768, 32767).astype(np.int16)
+    return clip(i), clip(q)
+
+
+def _adv_pdu(rng, n):
+    return np.concatenate([[0x02, n], rng.integers(0, 256, n)]).astype(np.uint8)
+
+
+SCAN_CASES = [
+    # rows, n, sps, lag, mask_hex, float rows, amplitude
+    (1, 131_072 + 1473, 4, 1, "ffffffff", False, 2000.0),
+    (1, 50_003, 2, 1, "ffffffff", False, 2000.0),
+    (1, 60_011, 8, 8, "ffffffff", False, 127.0),
+    (1, 20_000 + 1, 4, 1, "00000000", False, 2000.0),
+    (3, 30_007, 4, 1, "ffff0fff", False, 32000.0),
+    (40, 9_001, 4, 4, "f7fffffe", True, 1.0),
+]
+
+
+@pytest.mark.parametrize("rows,n,sps,lag,mask_hex,floats,amp", SCAN_CASES)
+def test_scan_kernel_matches_twin(dev, rows, n, sps, lag, mask_hex, floats, amp):
+    rng = np.random.default_rng(n)
+    ii, qq = [], []
+    for r in range(rows):
+        bursts = [(int(p), _nb_burst(_adv_pdu(rng, 12), 37, sps, amp))
+                  for p in rng.integers(0, n - 2000, 3)]
+        i, q = _nb_scene(r + n, n, bursts, noise=max(2.0, amp / 50))
+        ii.append(i)
+        qq.append(q)
+    i, q = np.stack(ii), np.stack(qq)
+    if floats:
+        i = i.astype(np.float32) * np.float32(0.37)
+        q = q.astype(np.float32) * np.float32(0.37) + rng.normal(
+            0, 0.3, q.shape).astype(np.float32)
+    aa = np.tile(B.hex_to_bits(ADV_AA_HEX), (rows, 1))
+    aa[1::2] = rng.integers(0, 2, (len(aa[1::2]), 32))
+    mask = B.hex_to_bits(mask_hex)
+    args = [torch.as_tensor(a, device=dev) for a in (i, q, aa, mask)]
+    before = SCAN_BLOCK.launches
+    hit, bits = scan_block_kernel(*args, sps, lag)
+    want = scan_block_reference(*args, sps, lag)
+    assert SCAN_BLOCK.launches == before + 1
+    assert torch.equal(bits, want[1]) and torch.equal(hit, want[0])
+    assert hit.shape == (rows, n - lag - 31 * sps) and bits.dtype == torch.int8
+    if mask_hex == "00000000":
+        assert bool(hit.all())
+    elif not floats:
+        assert int(hit[0].sum()) >= 3
+    cpu = scan_block_reference(*[a.cpu() for a in args], sps, lag)
+    assert torch.equal(cpu[0], hit.cpu()) and torch.equal(cpu[1], bits.cpu())
+
+
+def test_scan_kernel_1d_and_rejects(dev):
+    i, q = _nb_scene(1, 5000, [(700, _nb_burst(_adv_pdu(np.random.default_rng(1), 9), 37))])
+    ti, tq = torch.as_tensor(i, device=dev), torch.as_tensor(q, device=dev)
+    aa = torch.as_tensor(B.hex_to_bits(ADV_AA_HEX), device=dev)
+    mask = torch.ones(32, dtype=torch.int8, device=dev)
+    hit, bits = scan_block_kernel(ti, tq, aa, mask, 4, 1)
+    want = scan_block_reference(ti, tq, aa, mask, 4, 1)
+    assert hit.ndim == 1 and torch.equal(hit, want[0]) and torch.equal(bits, want[1])
+    with pytest.raises(ValueError):
+        scan_block_kernel(ti.to(torch.int32), tq.to(torch.int32), aa, mask, 4, 1)
+    with pytest.raises(ValueError):
+        scan_block_kernel(ti[:100], tq[:100], aa, mask, 4, 1)
+
+
+@pytest.mark.parametrize("sps", [4, 2, 8])
+def test_decode_clamp_tail_on_card(dev, sps):
+    """Candidates whose 336-bit window runs past the lattice, and
+    positions past it: clamp_tail=True equals the clamped twin (the XLA
+    decode's gathers) on the card and on the CPU."""
+    rng = np.random.default_rng(sps)
+    m, kb, c = 5, 4001, 12
+    bits = torch.as_tensor(rng.integers(0, 2, (m, kb)), dtype=torch.int8)
+    pos = torch.as_tensor(rng.integers(0, kb, (m, c)), dtype=torch.int32)
+    pos[:, -4:] = torch.as_tensor(kb - 1 - rng.integers(0, 1500, (m, 4)))
+    pos[0, 0] = kb + 30
+    whiten = torch.as_tensor(np.stack([W.whitening_bits(ch, 336)
+                                       for ch in (37, 3, 38, 9, 20)]))
+    crc = torch.as_tensor(rng.integers(0, 1 << 24, m), dtype=torch.int32)
+    adv = torch.tensor([True, False, True, False, False])
+    cpu = decode_candidates_reference(bits, pos, whiten, crc, adv, sps, True)
+    args = [t.to(dev) for t in (bits, pos, whiten, crc, adv)]
+    before = DECODE_CANDIDATES.launches
+    got = decode_candidates(*args, sps=sps, clamp_tail=True)
+    twin = decode_candidates_reference(*args, sps, True)
+    assert DECODE_CANDIDATES.launches == before + 1
+    for g, t, x in zip(got, twin, cpu):
+        assert torch.equal(g, t) and torch.equal(g.cpu(), x)
+    zero = decode_candidates(*args, sps=sps, clamp_tail=False)
+    assert not torch.equal(zero[0], got[0])
+
+
+def _connect_req(hop=9, interval=16):
+    payload = (bytes.fromhex("001830EA965F")[::-1] + bytes.fromhex("90D7EBB19299")[::-1]
+               + CONN_AA.to_bytes(4, "little") + bytes.fromhex(CONN_CRC_HEX)
+               + bytes([0x02]) + (0x000F).to_bytes(2, "little")
+               + interval.to_bytes(2, "little") + (0).to_bytes(2, "little")
+               + (0x07D0).to_bytes(2, "little") + bytes.fromhex("1FFFFFFFFF")[::-1]
+               + bytes([hop | (5 << 5)]))
+    return np.frombuffer(bytes([0x05, len(payload)]) + payload, np.uint8)
+
+
+def _data_burst(rng, ch, n=8):
+    pdu = np.concatenate([[0x01, n], rng.integers(0, 256, n)]).astype(np.uint8)
+    return _nb_burst(pdu, ch, aa_hex=CONN_AA_HEX, crc_hex=CONN_CRC_HEX)
+
+
+def test_narrowband_sniffer_on_card_matches_cpu(dev, monkeypatch):
+    """tests/test_hop.py's two-hop scene (CONNECT_REQ on 37, data on 9
+    then 18) plus ADV traffic: events, NDJSON, pcap and hop events of the
+    Sniffer on the card equal those on the CPU, at two block sizes."""
+    import time
+
+    rng = np.random.default_rng(0)
+    bursts = [(1000, _nb_burst(_adv_pdu(rng, 20), 37)),
+              (6000, _nb_burst(_adv_pdu(rng, 37), 37)),
+              (10_000, _nb_burst(_connect_req(), 37)),
+              (36_000, _data_burst(rng, 9)),
+              (96_000, _data_burst(rng, 18, 21))]
+    i, q = _nb_scene(5, 120_000, bursts)
+    monkeypatch.setattr(time, "time", lambda: 1715680000.5)
+    for scan_len in (8192, 16384):
+        out = []
+        for device in ("cpu", dev):
+            buf, pc = io.StringIO(), io.BytesIO()
+            sn = S.Sniffer(S.SnifferConfig(channel=37, sps=4, hop=True, rssi=True,
+                                           scan_len=scan_len),
+                           ndjson=S.NdjsonEmitter(buf), pcap=S.PcapWriter(pc),
+                           quiet_text=True, device=device)
+            events = sn.run(S.array_source(i, q))
+            out.append(([(e.ts_us, e.channel, e.access_addr, e.crc_ok,
+                          e.payload_bytes, e.rssi_dbm) for e in events],
+                        buf.getvalue(), pc.getvalue(),
+                        [(e.event, e.channel) for e in sn.hop_tracker.events]))
+        assert out[0] == out[1]
+        assert sum(e[3] for e in out[1][0]) == (5 if scan_len == 8192 else 4)
+        assert [e[0] for e in out[1][3]][:2] == ["track_start", "chan_change"]

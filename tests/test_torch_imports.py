@@ -23,10 +23,23 @@ PORT_MODULES = [
     "btle_tpu_torch.spec",
     "btle_tpu_torch.golden",
     "btle_tpu_torch.ll",
+    "btle_tpu_torch.ll.hop",
     "btle_tpu_torch.phy",
+    "btle_tpu_torch.phy.scan_kernel",
     "btle_tpu_torch.rx",
     "btle_tpu_torch.rx.decode_kernel",
+    "btle_tpu_torch.rx.decoder",
     "btle_tpu_torch.rx.pipeline",
+    "btle_tpu_torch.stream",
+    "btle_tpu_torch.stream.blocks",
+    "btle_tpu_torch.stream.control",
+    "btle_tpu_torch.stream.hci",
+    "btle_tpu_torch.stream.ndjson",
+    "btle_tpu_torch.stream.pcap",
+    "btle_tpu_torch.stream.sniffer",
+    "btle_tpu_torch.stream.sources",
+    "btle_tpu_torch.cli",
+    "btle_tpu_torch.cli.app",
     "btle_tpu_torch.wideband",
     "btle_tpu_torch.wideband.channelizer",
     "btle_tpu_torch.wideband.fused",

@@ -145,3 +145,21 @@ def test_convert_filter_tables_round_trip(num_taps):
     with pytest.raises(ValueError):
         convert.filter_tables_from_numpy(
             "bf16x2w", (jfused._g_chunks(num_taps),), "cpu")
+
+
+# modules the narrowband slice copies from the JAX package as they are
+# (pure Python / numpy): their code must stay the original's
+COPIED_MODULES = ["ll/hop.py", "stream/blocks.py", "stream/sources.py",
+                  "stream/ndjson.py", "stream/pcap.py", "stream/control.py",
+                  "stream/hci.py"]
+
+
+@pytest.mark.parametrize("module", COPIED_MODULES)
+def test_copied_modules_equal_originals(module):
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    trees = [ast.dump(ast.parse((root / pkg / module).read_text()))
+             for pkg in ("btle_tpu", "btle_tpu_torch")]
+    assert trees[0] == trees[1]
