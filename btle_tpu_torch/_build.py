@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` exports one plain C function ``btle_<name>``
-that launches its kernel on the given stream and returns
-``cudaGetLastError()``. On first use the source is compiled with nvcc
+Each ``csrc/<source>.cu`` exports plain C functions ``btle_<name>``,
+one per kernel (usually one, named as the source; a source templated
+over several kernels exports one per instance), each launching its
+kernel on the given stream and returning ``cudaGetLastError()``. On first use the source is compiled with nvcc
 (``-gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC``) into ``build/btle_tpu_torch/`` at the repository root, keyed
 by a hash of the source, the flags and ``nvcc --version``, and loaded
@@ -38,6 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SIGNATURES = {
     # frames, weights, y, J, Ky, n_chunks, chunk, width, stream
     "filterbank_bf16x2w": "pppliiiip",
+    # frames, weights, y, J, Ky, chunk, width, stream
+    "filterbank_im2col_bf16": "pppliiip",
+    "filterbank_im2col_f32x2": "pppliiip",
+    "filterbank_im2col_f32": "pppliiip",
     # f4, kcoefx, w4x, y, J, Ky, rows, n_slices, stack, stream
     "filterbank_polyx_f32": "ppppliiiip",
     # y, aa_rows, aa_mask, bits, hit, mag, Ky, n_bits, n_hit, sps, lag, stream
@@ -49,6 +54,15 @@ _SIGNATURES = {
     "scan_block": "ppppppiliiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
+# the source of each entry point not named as its source
+_SOURCES = {name: "filterbank_im2col" for name in
+            ("filterbank_im2col_bf16", "filterbank_im2col_f32x2",
+             "filterbank_im2col_f32")}
+
+
+def source_of(name: str) -> str:
+    """The csrc source (without .cu) that defines entry point ``name``."""
+    return _SOURCES.get(name, name)
 
 
 def nvcc_path() -> str:
@@ -84,11 +98,13 @@ def library_path(name: str) -> Path:
 
 
 def build(names=None) -> dict[str, str]:
-    """Compile every named kernel whose library is missing, one nvcc per
-    source, all started together. Returns {name: compiler output} for the
-    sources compiled now (ptxas register/shared-memory reports); raises
-    naming every source that failed."""
-    names = list(_SIGNATURES if names is None else names)
+    """Compile the sources of the named kernels (default: all) whose
+    library is missing, one nvcc per source, all started together.
+    Returns {source: compiler output} for the sources compiled now
+    (ptxas register/shared-memory reports); raises naming every source
+    that failed."""
+    names = sorted({source_of(n) for n in
+                    (_SIGNATURES if names is None else names)})
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -121,18 +137,19 @@ class CudaKernel:
 
     def __init__(self, name: str, replaces: str):
         self.name = name
+        self.source_name = source_of(name)
         self.replaces = replaces          # the TPU kernel it ports (file:line)
         self.launches = 0
         self._fn = None
 
     @property
     def source(self) -> str:
-        return str(source_path(self.name).relative_to(_PKG.parent))
+        return str(source_path(self.source_name).relative_to(_PKG.parent))
 
     def _load(self):
         if self._fn is None:
-            build([self.name])
-            lib = ctypes.CDLL(str(library_path(self.name)))
+            build([self.source_name])
+            lib = ctypes.CDLL(str(library_path(self.source_name)))
             fn = getattr(lib, f"btle_{self.name}")
             fn.argtypes = [_CTYPES[c] for c in _SIGNATURES[self.name]]
             fn.restype = ctypes.c_int

@@ -1,10 +1,11 @@
 """btle_tpu_torch command-line interface.
 
-The port's tool-layer surface, wired to IQ capture files and stdin
-streams (the ``btle_tpu`` CLI's counterpart; the other subcommands are
-not ported yet):
+The port's tool-layer surface, wired to IQ capture files, stdin streams
+and live UDP ingest (the ``btle_tpu`` CLI's counterpart; the other
+subcommands are not ported yet):
 
   decode    sniff one channel from an IQ file/stdin (btle_rx equivalent)
+  wideband  40-channel wideband sniff of an 80 Msps capture or live stream
 
 Runs on the CUDA card unless ``--device`` names another device
 (``--device cpu`` runs the plain PyTorch path).
@@ -14,6 +15,9 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
+
+import numpy as np
 
 
 def _add_rx_args(p):
@@ -143,6 +147,181 @@ def cmd_decode(args):
     return 0
 
 
+def cmd_wideband(args):
+    from ..stream import NdjsonEmitter
+    from ..stream.pcap import PcapWriter
+    from ..wideband import WidebandConfig, WidebandSniffer
+    from ..wideband.stream import WidebandStreamRunner
+
+    if args.phy in ("coded8", "coded2"):
+        raise SystemExit(f"wideband: --phy {args.phy} (LE Coded) is not ported "
+                         "yet (ROADMAP Queue 1 item 13)")
+    if args.ltk:
+        raise SystemExit("wideband: --ltk (passive decryption, ll/crypto.py) is "
+                         "not ported yet (ROADMAP Queue 1 item 15)")
+    cfg = WidebandConfig(follow_connections=args.follow or args.max_follow > 1,
+                         max_follow=args.max_follow, fused=args.fused,
+                         fused_dtype=args.fused_dtype, phy=args.phy)
+    sn = WidebandSniffer(cfg, device=args.device)
+    selftest = args.selftest
+    if selftest is None:
+        # the fused kernels on a card are gated by the known-answer test by
+        # default; --no-selftest skips it
+        selftest = cfg.fused and sn.device.type == "cuda"
+    if selftest:
+        # known-answer test on this device of exactly the pipeline and
+        # kernel configuration the scan below deploys (a kernel can build,
+        # run and decode nothing)
+        positions = sn.selftest()
+        mode = (f"fused {cfg.fused_dtype}" if cfg.fused else "xla") + (
+            "" if cfg.phy == "1m" else f" {cfg.phy}")
+        print(f"# self-test OK ({mode}): decoded "
+              f"{sorted(positions)} at {positions}", file=sys.stderr)
+
+    # --json owns stdout (schema v1, the ABI decode --json speaks too); the
+    # text lines move behind it. pcap composes with either.
+    ndjson = NdjsonEmitter() if args.json else None
+    pcap = PcapWriter(args.pcap) if args.pcap else None
+    runner = WidebandStreamRunner(sn, ndjson=ndjson, pcap=pcap,
+                                  text_fh=None if args.json else sys.stdout)
+    runner.start()
+    if args.live:
+        _wideband_live(args, runner)
+    else:
+        if not args.bin:
+            raise SystemExit("wideband: --bin FILE or --live --udp PORT")
+        data = np.fromfile(args.bin, dtype={"i8": np.int8, "i16": np.int16,
+                                            "f32": np.float32}[args.format])
+        runner.run_capture(data[0::2].astype(np.float32),
+                           data[1::2].astype(np.float32))
+    runner.stop()
+    if pcap:
+        pcap.close()
+    st = runner.stats
+    print(f"# {st.packets} packets ({st.crc_ok} CRC OK) in {st.blocks} "
+          f"blocks; {st.samples_wb/1e6:.1f} Ms consumed in {st.wall_s:.2f} s "
+          f"({st.msps:.0f} Msps)"
+          + (f"; {st.dropped_pairs} ring drops" if args.live else ""),
+          file=sys.stderr)
+    for ev in runner.follow_events():
+        print(f"# {ev.event} aa=0x{ev.access_addr:08x} ch={ev.channel} "
+              f"interval={ev.interval_us}us hop={ev.hop} t={ev.time_us}us",
+              file=sys.stderr)
+    if args.follow and sn.connection is not None:
+        c = sn.connection
+        print(f"# followed connection AA {c.access_addr:08x} "
+              f"crcInit {c.crc_init:06x} hop {c.hop} interval {c.interval}",
+              file=sys.stderr)
+    return 0
+
+
+def _wideband_live(args, runner):
+    """Unbounded live ingest: UDP datagrams -> native SPSC ring ->
+    overlap-save wideband blocks, the reference's main receive loop
+    (btle_rx.c:2610-2676) scaled to all 40 channels at once."""
+    import signal
+
+    from .. import runtime
+
+    if not runtime.available():
+        raise SystemExit("wideband --live needs the native runtime "
+                         "(g++ build failed?)")
+    sn = runner.sn
+    # ring capacity: >= 8 blocks of territory+halo so a slow consumer
+    # degrades to drops (counted + reported), never to blocking the
+    # producer thread
+    need = 8 * sn.wb_block_len
+    ring = runtime.IqRingBuffer(1 << max(22, (need - 1).bit_length()))
+    ingest = runtime.UdpIngest(ring, args.udp, fmt=args.format)
+    control = None
+    if args.control_port:
+        from ..stream.control import ControlServer
+
+        control = ControlServer(args.control_port)
+    stop_flag = {"stop": False}
+
+    def on_sigint(sig, frame):
+        stop_flag["stop"] = True
+
+    prev = signal.signal(signal.SIGINT, on_sigint)
+    deadline = (time.monotonic() + args.seconds) if args.seconds else None
+
+    def should_stop():
+        return stop_flag["stop"] or (
+            deadline is not None and time.monotonic() >= deadline)
+
+    print(f"# live: UDP port {args.udp} fmt {args.format} "
+          f"block {sn.cfg.scan_len_ch} ch-samples "
+          f"(~{sn.cfg.scan_len_ch/4000:.1f} ms air) pipeline depth "
+          f"{args.pipeline}", file=sys.stderr)
+    try:
+        runner.run_live(ring, should_stop=should_stop,
+                        pipeline=args.pipeline, control=control)
+    finally:
+        signal.signal(signal.SIGINT, prev)
+        ingest.stop()
+        if control is not None:
+            control.close()
+        ring.close()
+
+
+def _add_wideband_args(p):
+    p.add_argument("--bin", default=None,
+                   help="interleaved-IQ capture file (finite mode)")
+    p.add_argument("--format", default="f32", choices=["i8", "i16", "f32"])
+    p.add_argument("--pcap", default=None)
+    p.add_argument("--json", action="store_true",
+                   help="emit NDJSON schema-v1 pkt/hop/status events on "
+                        "stdout (follow events become hop events, "
+                        "candidate-slot rescans status events)")
+    p.add_argument("--live", action="store_true",
+                   help="unbounded live mode: ingest UDP datagrams into "
+                        "the native SPSC ring and scan until Ctrl-C or "
+                        "--seconds")
+    p.add_argument("--udp", type=int, default=9999, metavar="PORT",
+                   help="UDP port for --live sample ingest")
+    p.add_argument("--seconds", type=float, default=None,
+                   help="stop --live after this many seconds")
+    p.add_argument("--pipeline", type=int, default=2, metavar="DEPTH",
+                   help="scans kept in flight in --live mode (follow "
+                        "re-keying lags DEPTH-1 blocks)")
+    p.add_argument("--control-port", type=int, default=None, metavar="PORT",
+                   help="listen for send-cmd register writes and apply "
+                        "them between blocks (--live)")
+    p.add_argument("--ltk", default=None, metavar="HEX32",
+                   help="long-term key for passive decryption: not ported "
+                        "yet (ROADMAP Queue 1 item 15)")
+    p.add_argument("--follow", action="store_true",
+                   help="follow CONNECT_REQs onto the data channels")
+    p.add_argument("--max-follow", type=int, default=1, metavar="N",
+                   help="follow up to N connections concurrently, each "
+                        "owning the data channel its hop sequence occupies "
+                        "(implies --follow)")
+    p.add_argument("--fused", action="store_true",
+                   help="use the fused front end (the hand-written CUDA "
+                        "kernels on a card)")
+    p.add_argument("--fused-dtype", default="bf16x2w",
+                   choices=["bf16x2w", "f32", "bf16"],
+                   help="fused front-end numerics: bf16x2w = shipped "
+                        "default (bf16 frames, exact hi/lo weight pair), "
+                        "f32 = exact-filterbank parity mode, bf16 = "
+                        "8-bit-ADC-class stopband")
+    p.add_argument("--phy", default="1m",
+                   choices=["1m", "2m", "coded8", "coded2"],
+                   help="LE PHY of the airspace (2m: 2 samples/symbol per "
+                        "channel on the same grid; coded8/coded2 not "
+                        "ported yet)")
+    p.add_argument("--selftest", default=None, action="store_true",
+                   help="run the known-answer self-test on the device "
+                        "before scanning; runs automatically when the "
+                        "fused pipeline runs on a card")
+    p.add_argument("--no-selftest", dest="selftest", action="store_false",
+                   help="skip the automatic fused-pipeline self-test")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the scan (default cuda; cpu runs "
+                        "the plain PyTorch path)")
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="btle_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -150,6 +329,9 @@ def build_parser():
     p = sub.add_parser("decode", help="sniff one channel from an IQ capture")
     _add_rx_args(p)
     p.set_defaults(fn=cmd_decode)
+    p = sub.add_parser("wideband", help="40-channel wideband sniff (80 Msps capture)")
+    _add_wideband_args(p)
+    p.set_defaults(fn=cmd_wideband)
     return ap
 
 

@@ -31,30 +31,39 @@ def scan_tables_from_numpy(aa_rows, aa_mask, whiten_rows, crc_inits,
             torch.tensor(np.asarray(adv_flags, bool), device=dev))
 
 
-def filter_tables_from_numpy(compute_dtype: str, tables, device):
-    """The fused front end's weight tables for one mode, numpy -> tensors:
+def filter_tables_from_numpy(kind: str, tables, device):
+    """The fused front end's weight tables for one filterbank kind
+    (``wideband.fused.filterbank_kind``), numpy -> tensors:
 
-      "bf16x2w": (g_chunks_hilo,) — the (n_chunks, 160, chunk*40) stacked
-                 hi/lo pair, every entry bf16-representable, so the bf16
-                 tensor holds it exactly;
-      "f32":     (perm, kcoefx, w4x[, n_slices]) of _polyx_tables — the
-                 frame-row gather as int64, the stacked taps and the DFT
-                 as float32.
+      "bf16x2w":    (g_chunks_hilo,) — the (n_chunks, 160, chunk*40)
+                    stacked hi/lo pair, every entry bf16-representable, so
+                    the bf16 tensor holds it exactly;
+      "f32x2":      (g_chunks_x2,) — the (n_chunks, 160, chunk*80) hi/lo
+                    pair with duplicated columns, bf16-representable too;
+      "bf16":       (g_chunks,) — rounded to bf16 (round to nearest even),
+                    as the JAX package casts it;
+      "f32_im2col": (g_chunks,) as float32;
+      "f32", "bf16_poly": (perm, kcoefx, w4x[, n_slices]) of _polyx_tables
+                    — the frame-row gather as int64, the stacked taps and
+                    the DFT as float32.
     """
     dev = torch.device(device)
-    if compute_dtype == "bf16x2w":
+    if kind in ("bf16x2w", "f32x2", "bf16"):
         (gk,) = tables
         gk = torch.as_tensor(np.asarray(gk, np.float32))
         out = gk.to(torch.bfloat16)
-        if not torch.equal(out.to(torch.float32), gk):
+        if kind != "bf16" and not torch.equal(out.to(torch.float32), gk):
             raise ValueError("hi/lo weights are not bf16-representable")
         return (out.to(dev).contiguous(),)
-    if compute_dtype == "f32":
+    if kind == "f32_im2col":
+        (gk,) = tables
+        return (torch.as_tensor(np.asarray(gk, np.float32), device=dev).contiguous(),)
+    if kind in ("f32", "bf16_poly"):
         perm, kcoefx, w4x = tables[:3]
         return (torch.as_tensor(np.asarray(perm), dtype=torch.long, device=dev),
                 torch.as_tensor(np.asarray(kcoefx, np.float32), device=dev).contiguous(),
                 torch.as_tensor(np.asarray(w4x, np.float32), device=dev).contiguous())
-    raise NotImplementedError(f"no filter tables for compute_dtype {compute_dtype!r}")
+    raise ValueError(f"no filter tables for filterbank kind {kind!r}")
 
 
 def sniffer_state(sniffer, next_offset: int, skip: int) -> dict:

@@ -5,14 +5,21 @@ one Pallas kernel per time tile; here it is two hand-written CUDA
 kernels per block (``csrc/``), each with a plain PyTorch twin in this
 module:
 
-  1. the filterbank, by mode —
-     - ``"bf16x2w"`` (shipped default): the DFT-folded polyphase
-       filterbank, bf16 frames times the exact bf16 hi/lo weight pair
-       (``filterbank_bf16x2w``, port of ``_kernel`` inner "im2col");
-     - ``"f32"`` (exact parity mode): the stacked true-polyphase FMAs,
-       then the 80x80 DFT, in true FP32 (``filterbank_polyx_f32``, port
-       of ``_kernel_polyx``);
-  2. the demod tail shared by both (``demod_tail``, port of
+  1. the filterbank. ``filterbank_kind(compute_dtype, inner)`` maps each
+     (numerics class, inner) pair the JAX package accepts onto one
+     kernel (``FILTERBANK_KIND``):
+     - ``"bf16x2w"`` (shipped default; inners im2col, im2colp): the
+       DFT-folded polyphase filterbank, bf16 frames times the exact bf16
+       hi/lo weight pair (``filterbank_bf16x2w``, K1);
+     - ``"bf16"`` (im2col, im2colp, dots), ``"f32x2"`` (im2col) and
+       ``"f32"`` with im2col, im2colp or dots: the same folded
+       filterbank with the class's weights and frames
+       (``filterbank_im2col_*``, K5, one kernel templated on the class);
+     - ``"f32"`` with polyx (its default), poly or polyroll, and
+       ``"bf16"`` with poly (the frames rounded to bf16, the taps exact):
+       the stacked true-polyphase FMAs, then the 80x80 DFT, in true FP32
+       (``filterbank_polyx_f32``, K3);
+  2. the demod tail shared by all (``demod_tail``, port of
      ``_demod_tail``): phase-difference decisions, the per-channel
      32-tap access-address test, RSSI window sums.
 
@@ -22,10 +29,10 @@ work. The (-1)^(mk) half-band sign is never applied to y: it cancels in
 the demod at even lag and flips odd bins' decisions at odd lag.
 
 Wrappers take the plain twin only for tensors on the CPU; a CUDA tensor
-launches the kernel or raises. ``tile``, ``_POLY_GROUP``, ``AA_GRP``,
-128-lane padding and ``dev_skip`` were Mosaic workarounds, not
-semantics: ``tile`` is accepted for signature compatibility and changes
-nothing.
+launches the kernel or raises. The inners (pair stacking, per-shift
+dots, roll manufacture), ``tile``, ``_POLY_GROUP``, ``AA_GRP``, 128-lane
+padding and ``dev_skip`` were Mosaic scheduling choices, not semantics:
+``tile`` is accepted for signature compatibility and changes nothing.
 """
 
 from __future__ import annotations
@@ -48,11 +55,31 @@ FILTERBANK_BF16X2W = CudaKernel("filterbank_bf16x2w",
                                 replaces="btle_tpu/wideband/fused.py:373")
 FILTERBANK_POLYX_F32 = CudaKernel("filterbank_polyx_f32",
                                   replaces="btle_tpu/wideband/fused.py:620")
+# K5: one CUDA source templated on the numerics class, one kernel each
+FILTERBANK_IM2COL = {
+    kind: CudaKernel(f"filterbank_im2col_{cls}",
+                     replaces="btle_tpu/wideband/fused.py:373")
+    for kind, cls in (("bf16", "bf16"), ("f32x2", "f32x2"),
+                      ("f32_im2col", "f32"))}
 DEMOD_TAIL = CudaKernel("demod_tail", replaces="btle_tpu/wideband/fused.py:458")
 
-# the ported numerics classes and their inner (ROADMAP kernel queue K5/K6
-# brings the others)
-_MODES = {"bf16x2w": "im2col", "f32": "polyx"}
+# (compute_dtype, inner) -> filterbank kind, for every pair the JAX
+# package accepts (fused.py:740-880): the inners of one numerics class
+# compute one function in different Mosaic schedules, so they share a
+# kernel. "bf16_poly" is K3 with the frames rounded to bf16 before the
+# row gather (the JAX poly inner keeps the taps exact at "bf16").
+FILTERBANK_KIND = {
+    ("bf16x2w", "im2col"): "bf16x2w", ("bf16x2w", "im2colp"): "bf16x2w",
+    ("bf16", "im2col"): "bf16", ("bf16", "im2colp"): "bf16",
+    ("bf16", "dots"): "bf16", ("bf16", "poly"): "bf16_poly",
+    ("f32x2", "im2col"): "f32x2",
+    ("f32", "im2col"): "f32_im2col", ("f32", "im2colp"): "f32_im2col",
+    ("f32", "dots"): "f32_im2col",
+    ("f32", "polyx"): "f32", ("f32", "poly"): "f32", ("f32", "polyroll"): "f32",
+}
+# the JAX package's _default_inner
+DEFAULT_INNER = {"bf16x2w": "im2col", "bf16": "im2col", "f32x2": "im2col",
+                 "f32": "polyx"}
 
 
 # --------------------------------------------------------------------------
@@ -100,6 +127,27 @@ def _g_chunks_hilo(num_taps: int, cutoff_mhz: float = 1.0) -> np.ndarray:
     hi = gc.to(torch.bfloat16).to(torch.float32)
     lo = (gc - hi).to(torch.bfloat16).to(torch.float32)
     return np.ascontiguousarray(torch.cat([hi, lo], dim=1).numpy())
+
+
+@lru_cache(maxsize=None)
+def _g_chunks_x2(num_taps: int, cutoff_mhz: float = 1.0) -> np.ndarray:
+    """(N_CHUNKS, 160, chunk*80) weights of the "f32x2" class: rows
+    [hi; lo] of the exact bf16 split of _g_chunks, each weight column
+    duplicated over the [xhi(40); xlo(40)] operand rows of one shift, so
+    yc = W2 @ X2 gives y = yc[:80] + yc[80:] = (Ghi + Glo) @ (xhi + xlo).
+    Rounded with torch's float32 -> bfloat16 conversion (round to nearest
+    even, as ml_dtypes)."""
+    gc = torch.from_numpy(_g_chunks(num_taps, cutoff_mhz).astype(np.float32))
+    hi = gc.to(torch.bfloat16).to(torch.float32)
+    lo = (gc - hi).to(torch.bfloat16).to(torch.float32)
+    n, rows, cols = gc.shape
+    chunk = cols // (2 * D)
+
+    def dup(a):
+        return (a.reshape(n, rows, chunk, 1, 2 * D)
+                .expand(n, rows, chunk, 2, 2 * D).reshape(n, rows, chunk * 4 * D))
+
+    return np.ascontiguousarray(torch.cat([dup(hi), dup(lo)], dim=1).numpy())
 
 
 @lru_cache(maxsize=None)
@@ -178,17 +226,26 @@ def _polyx_tables(num_taps: int, stack: int = POLYX_STACK,
     return perm, kcoefx, np.ascontiguousarray(w4x), n_slices
 
 
+def host_tables(kind: str, num_taps: int, cutoff_mhz: float = 1.0) -> tuple:
+    """The numpy weight tables of a filterbank kind, as the JAX package
+    builds them (``convert.filter_tables_from_numpy`` takes them over)."""
+    if kind == "bf16x2w":
+        return (_g_chunks_hilo(num_taps, cutoff_mhz),)
+    if kind in ("bf16", "f32_im2col"):
+        return (_g_chunks(num_taps, cutoff_mhz),)
+    if kind == "f32x2":
+        return (_g_chunks_x2(num_taps, cutoff_mhz),)
+    return _polyx_tables(num_taps, POLYX_STACK, cutoff_mhz)
+
+
 @lru_cache(maxsize=32)
-def _device_tables(mode: str, num_taps: int, cutoff_mhz: float,
+def _device_tables(kind: str, num_taps: int, cutoff_mhz: float,
                    device: torch.device):
-    """The mode's weight tensors on ``device`` (uploaded once)."""
+    """The kind's weight tensors on ``device`` (uploaded once)."""
     from ..convert import filter_tables_from_numpy
 
-    if mode == "bf16x2w":
-        tables = (_g_chunks_hilo(num_taps, cutoff_mhz),)
-    else:
-        tables = _polyx_tables(num_taps, POLYX_STACK, cutoff_mhz)
-    return filter_tables_from_numpy(mode, tables, device)
+    return filter_tables_from_numpy(kind, host_tables(kind, num_taps, cutoff_mhz),
+                                    device)
 
 
 # --------------------------------------------------------------------------
@@ -236,6 +293,65 @@ def filterbank_bf16x2w(frames, gk, width: int, ky: int):
     y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
     FILTERBANK_BF16X2W.launch(frames, gk, y, frames.shape[1], ky, n_chunks,
                               cols // (2 * D), width)
+    return y
+
+
+def filterbank_im2col_reference(frames, gk, width: int, ky: int, kind: str):
+    """Plain twin of ``filterbank_im2col`` (K5): the class's frames
+    convolved with its (80, 40, width) weights in true FP32, one
+    convolution per im2col chunk of shifts, summed — the TPU kernel's
+    chunk contractions. (One convolution over all 65 shifts sums 2600
+    terms in a row on the CPU, about four times the rounding error of
+    the chunked sum, which flips ~1e-3 of the noise-floor decisions
+    against the JAX package at lag 1.) At "f32x2" the hi/lo halves of
+    weights and frames are summed first (exact in float32), as the
+    kernel stages them."""
+    pair = kind == "f32x2"
+    n_chunks, rows, cols = gk.shape
+    fb_rows = 2 * D * (2 if pair else 1)
+    chunk = cols // fb_rows
+    g = gk.to(torch.float32)
+    if pair:
+        g = (g[:, : 2 * M] + g[:, 2 * M:]).reshape(
+            n_chunks, 2 * M, chunk, 2, 2 * D)[:, :, :, 0]
+    # W[o, i, c*chunk + j] = g[c, o, j*40 + i]
+    w = (g.reshape(n_chunks, 2 * M, chunk, 2 * D).permute(1, 3, 0, 2)
+         .reshape(2 * M, 2 * D, n_chunks * chunk))
+    x = frames.to(torch.float32)
+    if pair:
+        x = x[: 2 * D] + x[2 * D:]
+    y = torch.zeros((2 * M, ky), dtype=torch.float32, device=frames.device)
+    with true_fp32():
+        for s0 in range(0, width, chunk):
+            s1 = min(s0 + chunk, width)
+            y += torch.nn.functional.conv1d(
+                x[None, :, s0: s1 + ky - 1], w[:, :, s0:s1].contiguous())[0]
+    return y
+
+
+def filterbank_im2col(frames, gk, width: int, ky: int, kind: str):
+    """K5: the folded filterbank in numerics class ``kind`` — "bf16":
+    (40, J) bf16 frames, (n_chunks, 80, chunk*40) bf16 weights; "f32x2":
+    (80, J) bf16 frames [xhi; xlo], (n_chunks, 160, chunk*80) bf16
+    weights (_g_chunks_x2); "f32_im2col": (40, J) float32 frames and
+    weights. Frames zero-padded to at least ky + width - 1 columns ->
+    y (80, ky) float32."""
+    if frames.device.type == "cpu":
+        return filterbank_im2col_reference(frames, gk, width, ky, kind)
+    kernel = FILTERBANK_IM2COL[kind]
+    _check_cuda(kernel.name, frames, gk)
+    pair = kind == "f32x2"
+    dtype = torch.float32 if kind == "f32_im2col" else torch.bfloat16
+    n_chunks, rows, cols = gk.shape
+    fb_rows = 2 * D * (2 if pair else 1)
+    if (frames.dtype != dtype or gk.dtype != dtype
+            or frames.shape[0] != fb_rows or rows != 2 * M * (2 if pair else 1)
+            or cols % fb_rows or n_chunks * (cols // fb_rows) < width):
+        raise ValueError(f"{kernel.name}: bad dtypes or shapes "
+                         f"{tuple(frames.shape)} {frames.dtype}, "
+                         f"{tuple(gk.shape)} {gk.dtype}")
+    y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
+    kernel.launch(frames, gk, y, frames.shape[1], ky, cols // fb_rows, width)
     return y
 
 
@@ -328,29 +444,33 @@ def demod_tail(y, aa_rows, aa_mask, sps: int, lag: int, n_bits: int,
 # --------------------------------------------------------------------------
 
 
-def _mode_inner(compute_dtype: str, inner: str | None) -> str:
-    if compute_dtype not in _MODES:
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype!r} is not ported yet (ROADMAP "
-            "kernel queue K5: the other numerics classes of _kernel); "
-            f"ported: {sorted(_MODES)}")
-    default = _MODES[compute_dtype]
-    if inner is not None and inner != default:
-        raise NotImplementedError(
-            f"inner {inner!r} is not ported yet (ROADMAP kernel queue K5/K6: "
-            f"the Mosaic scheduling variants); {compute_dtype!r} runs "
-            f"{default!r}")
-    return default
+def filterbank_kind(compute_dtype: str, inner: str | None = None) -> str:
+    """The filterbank kind (key of FILTERBANKS) that runs
+    ``compute_dtype`` at ``inner`` (None: the JAX package's default).
+    Raises ValueError for the pairs the JAX package asserts against
+    (e.g. bf16x2w/dots, f32x2/poly, bf16/polyroll) and unknown names."""
+    if compute_dtype not in DEFAULT_INNER:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r} (want one "
+                         f"of {sorted(DEFAULT_INNER)})")
+    inner = DEFAULT_INNER[compute_dtype] if inner is None else inner
+    kind = FILTERBANK_KIND.get((compute_dtype, inner))
+    if kind is None:
+        ok = sorted(i for d, i in FILTERBANK_KIND if d == compute_dtype)
+        raise ValueError(f"inner {inner!r} does not run at compute_dtype "
+                         f"{compute_dtype!r} (accepted: {ok})")
+    return kind
 
 
 def frontend_operands(i_wb, q_wb, aa_rows, aa_mask, num_taps: int,
                       has_context: bool, sps: int, lag: int,
                       compute_dtype: str, cutoff_mhz: float,
-                      device: torch.device):
+                      device: torch.device, inner: str | None = None):
     """Frame prep (identical to channelize's) and the operands of the
-    mode's two kernels: (filterbank_args, tail_args) such that
-    ``demod_tail(FILTERBANKS[compute_dtype][0](*filterbank_args),
-    *tail_args)`` is the front end's output."""
+    two kernels of (compute_dtype, inner): (filterbank_args, tail_args)
+    such that ``demod_tail(FILTERBANKS[filterbank_kind(compute_dtype,
+    inner)][0](*filterbank_args), *tail_args)`` is the front end's
+    output."""
+    kind = filterbank_kind(compute_dtype, inner)
     win = AA_BITS * sps
     if win & (win - 1):
         raise ValueError("RSSI doubling needs 32*sps to be a power of 2")
@@ -372,12 +492,21 @@ def frontend_operands(i_wb, q_wb, aa_rows, aa_mask, num_taps: int,
     # last hit position; columns past K come from zero frames, as on the TPU
     ky = max(k_out, n_hit + win - 1)
 
-    if compute_dtype == "bf16x2w":
-        (gk,) = _device_tables("bf16x2w", num_taps, cutoff_mhz, device)
-        frames = torch.nn.functional.pad(
-            f_t, (0, ky + width - 1 - f_t.shape[1])).to(torch.bfloat16)
-        fb_args = (frames, gk, width, ky)
+    if kind in ("bf16x2w", "bf16", "f32x2", "f32_im2col"):
+        (gk,) = _device_tables(kind, num_taps, cutoff_mhz, device)
+        frames = torch.nn.functional.pad(f_t, (0, ky + width - 1 - f_t.shape[1]))
+        if kind == "f32x2":
+            # the exact bf16 hi/lo split of the frames, stacked on rows
+            hi = frames.to(torch.bfloat16)
+            frames = torch.cat([hi, (frames - hi.to(torch.float32))
+                                .to(torch.bfloat16)])
+        elif kind != "f32_im2col":
+            frames = frames.to(torch.bfloat16)
+        fb_args = ((frames, gk, width, ky) if kind == "bf16x2w"
+                   else (frames.contiguous(), gk, width, ky, kind))
     else:
+        if kind == "bf16_poly":
+            f_t = f_t.to(torch.bfloat16).to(torch.float32)
         perm, kcoefx, w4x = _device_tables("f32", num_taps, cutoff_mhz, device)
         stack, n_slices = POLYX_STACK, kcoefx.shape[1]
         jp = ky + stack * (n_slices - 1)
@@ -389,10 +518,14 @@ def frontend_operands(i_wb, q_wb, aa_rows, aa_mask, num_taps: int,
     return fb_args, (aa_rows, aa_mask, sps, lag, n_bits, n_hit)
 
 
-# mode -> (filterbank kernel wrapper, its plain twin)
+# filterbank kind -> (kernel wrapper, its plain twin)
 FILTERBANKS = {
     "bf16x2w": (filterbank_bf16x2w, filterbank_bf16x2w_reference),
+    "bf16": (filterbank_im2col, filterbank_im2col_reference),
+    "f32x2": (filterbank_im2col, filterbank_im2col_reference),
+    "f32_im2col": (filterbank_im2col, filterbank_im2col_reference),
     "f32": (filterbank_polyx_f32, filterbank_polyx_f32_reference),
+    "bf16_poly": (filterbank_polyx_f32, filterbank_polyx_f32_reference),
 }
 
 
@@ -408,16 +541,18 @@ def fused_frontend(i_wb, q_wb, aa_rows, aa_mask, num_taps: int = DEFAULT_TAPS,
       hit  (M, K-lag-31*sps)   AA-match mask (bool)
       mag  (M, K-lag-31*sps)   RSSI window mean at each position (f32)
     with K the per-channel sample count channelize() would produce.
-    aa_rows: (M, 32) per-channel AA bits (or (32,), broadcast). Runs on
-    ``device`` (cuda unless the caller passes another); ``tile`` is
-    accepted for signature compatibility and changes nothing.
+    aa_rows: (M, 32) per-channel AA bits (or (32,), broadcast).
+    ``compute_dtype`` / ``inner`` take every pair the JAX package takes
+    (``filterbank_kind``). Runs on ``device`` (cuda unless the caller
+    passes another); ``tile`` is accepted for signature compatibility
+    and changes nothing.
     """
     del tile
-    _mode_inner(compute_dtype, inner)
+    kind = filterbank_kind(compute_dtype, inner)
     fb_args, tail_args = frontend_operands(
         i_wb, q_wb, aa_rows, aa_mask, num_taps, has_context, sps, lag,
-        compute_dtype, cutoff_mhz, resolve_device(device))
-    y = FILTERBANKS[compute_dtype][0](*fb_args)
+        compute_dtype, cutoff_mhz, resolve_device(device), inner)
+    y = FILTERBANKS[kind][0](*fb_args)
     return demod_tail(y, *tail_args)
 
 

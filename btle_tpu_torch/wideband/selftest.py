@@ -63,17 +63,21 @@ def _scene(phy: str = "1m"):
     return wi, wq, expected
 
 
-def fused_selftest(compute_dtype: str = "f32", decode: str = "pallas",
+def fused_selftest(compute_dtype: str = "f32", tile: int | None = None,
+                   inner: str | None = None, decode: str = "pallas",
                    max_candidates: int = 8, pipeline: str = "fused",
                    phy: str = "1m", cutoff_mhz: float | None = None,
                    device=None) -> dict[int, int]:
     """Run the known-answer scene through the scan pipeline and verify.
 
     Arguments mirror ``wideband_scan_fused``'s configuration so the test
-    exercises exactly the mode about to be deployed; pipeline="xla" tests
-    the plain torch path instead. Runs on ``device`` (cuda unless the
-    caller passes another). Returns {channel: hit position} on success;
-    raises WidebandSelfTestError naming every missing/corrupt packet.
+    exercises exactly the mode about to be deployed: every
+    (compute_dtype, inner) pair of ``fused.FILTERBANK_KIND``; ``tile``
+    is accepted and changes nothing, as there. pipeline="xla" tests the
+    plain torch path instead (the kernel arguments are then ignored).
+    Runs on ``device`` (cuda unless the caller passes another). Returns
+    {channel: hit position} on success; raises WidebandSelfTestError
+    naming every missing/corrupt packet.
     """
     import torch
 
@@ -93,7 +97,8 @@ def fused_selftest(compute_dtype: str = "f32", decode: str = "pallas",
     if pipeline == "fused":
         out = wideband_scan_fused(xi, xq, aa, mask, whiten, crc, adv, sps=sps,
                                   lag=sps, max_candidates=max_candidates,
-                                  compute_dtype=compute_dtype, decode=decode,
+                                  tile=tile, compute_dtype=compute_dtype,
+                                  inner=inner, decode=decode,
                                   cutoff_mhz=cutoff_mhz, device=dev)
     elif pipeline == "xla":
         out = wideband_scan(xi, xq, aa, mask, whiten, crc, adv, sps=sps,
@@ -134,6 +139,6 @@ def fused_selftest(compute_dtype: str = "f32", decode: str = "pallas",
     if failures:
         raise WidebandSelfTestError(
             f"wideband self-test FAILED (pipeline={pipeline}, "
-            f"compute_dtype={compute_dtype}, decode={decode}, "
+            f"compute_dtype={compute_dtype}, inner={inner}, decode={decode}, "
             f"phy={phy}, device={dev}): " + "; ".join(failures))
     return positions

@@ -5,7 +5,11 @@ split by the polyphase channelizer and all 40 channels run the dense
 receive pipeline per block on the device — the fused front end
 (wideband.fused, hand-written CUDA kernels) or the plain torch path
 that mirrors the JAX package's XLA path — and the host walks the tiny
-candidate lists to apply per-channel span-eating and PDU parsing.
+candidate lists to apply per-channel span-eating and PDU parsing, and,
+with ``follow_connections``, re-keys data channels after a CONNECT_REQ
+(one connection on every data channel, ``ll.hop``, or up to
+``max_follow`` each on the channel its hop sequence occupies,
+``ll.multifollow``).
 """
 
 from __future__ import annotations
@@ -92,6 +96,43 @@ def wideband_scan(i_wb, q_wb, aa_rows, aa_mask, whiten_rows, crc_inits,
                            sps, lag, max_candidates)
 
 
+def try_track_connection(hop_tracker, pkt, now_us, aa_rows, crc_inits):
+    """CONNECT_REQ handling of the single-connection follower: book the
+    connection with the hop tracker and, iff the tracker ACCEPTED it
+    (state 0 -> tracking), return (conn, new_aa_rows, new_crc_inits) as
+    numpy arrays with every data channel keyed to the connection;
+    otherwise None. A later CONNECT_REQ while already tracking is
+    ignored, like the reference's controller which only consumes
+    receiver_status in state 0 (btle_rx.c:2414-2457)."""
+    from ..ll.hop import ConnectionInfo
+    from ..ll.pdu import AdvPduType
+
+    if not (pkt.crc_ok and pkt.channel in (37, 38, 39)):
+        return None
+    try:
+        hdr = parse_adv_header(pkt.pdu_bytes[:2])
+        if hdr.pdu_type != AdvPduType.CONNECT_REQ:
+            return None
+        payload = parse_adv_payload(pkt.pdu_bytes[2:], hdr.pdu_type)
+    except ValueError:
+        return None
+    conn = ConnectionInfo(payload.aa, payload.crc_init, payload.hop,
+                          payload.interval, payload.chm)
+    prev_state = hop_tracker.state
+    hop_tracker.on_connect_req(conn, now_us)
+    if not (prev_state == 0 and hop_tracker.state != 0):
+        return None
+    aa_bits = B.hex_to_bits(int(conn.access_addr).to_bytes(4, "little").hex())
+    crc_tab = C.crc_init_reorder(conn.crc_init)
+    new_aa = np.asarray(aa_rows).copy()
+    new_crc = np.asarray(crc_inits).copy()
+    for m in range(M):
+        if bin_to_channel(m) not in (37, 38, 39):
+            new_aa[m] = aa_bits
+            new_crc[m] = crc_tab
+    return conn, new_aa, new_crc
+
+
 def rescan_channel(i_wb, q_wb, slot, aa_row, aa_mask, whiten_row, crc_init,
                    adv_flag, min_pos, sps: int = CH_SPS, lag: int = CH_LAG,
                    max_candidates: int = 8, num_taps: int = DEFAULT_TAPS,
@@ -118,14 +159,23 @@ def rescan_channel(i_wb, q_wb, slot, aa_row, aa_mask, whiten_row, crc_init,
 class WidebandConfig:
     access_address_hex: str = ADV_ACCESS_ADDRESS_HEX
     crc_init_hex: str = "555555"
-    # sniff CONNECT_REQ -> listen on data channels: not ported yet (ROADMAP
-    # Queue 1, hop following); True raises NotImplementedError
-    follow_connections: bool = False
+    follow_connections: bool = False  # sniff CONNECT_REQ -> listen on data channels
+    # >1: follow up to N connections concurrently, each owning the data
+    # channel its hop sequence currently occupies (ll.multifollow); 1 keeps
+    # the reference's semantics: the first tracked connection keys every
+    # data channel
+    max_follow: int = 1
+    # multi-follow only: unregister a connection after K intervals
+    # without a CRC-OK packet (None = never, like the reference)
+    drop_after_intervals: int | None = None
     max_candidates: int = 16
     scan_len_ch: int = 8192          # per-channel territory (samples @4 Msps)
     num_taps: int = DEFAULT_TAPS
     # CRC init (table form) of the data channels; None = crc_init_hex's
     data_crc_init_table: int | None = None
+    # accepted for compatibility with the JAX config, which declares it
+    # and reads it nowhere
+    data_access_address_hex: str | None = None
     # fused front end (wideband.fused, the hand-written CUDA kernels); off
     # runs the plain torch path of the JAX package's XLA pipeline
     fused: bool = False
@@ -187,12 +237,11 @@ class WidebandSniffer:
     (cuda unless the caller passes another)."""
 
     def __init__(self, cfg: WidebandConfig | None = None, device=None):
+        from ..ll.hop import HopTracker
+        from ..ll.multifollow import MultiConnectionFollower
+
         self.cfg = cfg or WidebandConfig()
         cfg = self.cfg
-        if cfg.follow_connections:
-            raise NotImplementedError(
-                "follow_connections is not ported yet (ROADMAP Queue 1: hop "
-                "following, ll/hop.py + ll/multifollow.py)")
         self.device = resolve_device(device)
         _, mask, whiten, _, adv = _default_scan_arrays()
         aa = B.hex_to_bits(cfg.access_address_hex)
@@ -204,6 +253,7 @@ class WidebandSniffer:
          self.adv_flags) = scan_tables_from_numpy(
             np.tile(aa, (M, 1)), mask, whiten, crc, adv, device=self.device)
         self._aa_host = np.tile(aa, (M, 1))           # host copy of aa_rows
+        self._crc_host = crc                          # host copy of crc_inits
         self._cursors = np.zeros(M, dtype=np.int64)   # per-channel span-eating
         self._offset_ch = 0                           # per-channel sample offset
         self._sps = ch_sps_for_phy(cfg.phy)
@@ -216,6 +266,36 @@ class WidebandSniffer:
         self._ctx_q = np.zeros(self._ctx_len, np.float32)
         self.truncated_channels = 0   # candidate-capacity overflows seen
         self._aa_np = None            # per-block snapshot of aa_rows
+        # connection following: the wideband receiver hears all 37 data
+        # channels at once, so tracking a connection only swaps AA/CRC rows
+        self.hop_tracker = None
+        self.multi_follower = None
+        if cfg.follow_connections:
+            if cfg.max_follow > 1:
+                self.multi_follower = MultiConnectionFollower(
+                    self._aa_host, self._crc_host,
+                    max_connections=cfg.max_follow,
+                    drop_after_intervals=cfg.drop_after_intervals)
+            else:
+                self.hop_tracker = HopTracker()
+        self.connection = None
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array as a new tensor on the device: on a card through
+        pinned memory, non-blocking (no wait for the scans in flight,
+        which keep the tensors they were given)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _set_tables(self, aa_rows, crc_inits):
+        """Re-key: new AA-row / CRC-init tensors for the blocks dispatched
+        from now on."""
+        self._aa_host = np.asarray(aa_rows, np.int8).copy()
+        self._crc_host = np.asarray(crc_inits, np.int32).copy()
+        self.aa_rows = self._upload(self._aa_host)
+        self.crc_inits = self._upload(self._crc_host)
 
     @property
     def wb_block_len(self) -> int:
@@ -233,10 +313,7 @@ class WidebandSniffer:
         self._cursors = np.asarray(cursors, dtype=np.int64).copy()
         self._offset_ch = int(offset_ch)
         self._ctx_i, self._ctx_q = ctx_i.copy(), ctx_q.copy()
-        self._aa_host = np.asarray(aa_rows, dtype=np.int8).copy()
-        self.aa_rows = torch.tensor(self._aa_host, device=self.device)
-        self.crc_inits = torch.tensor(np.asarray(crc_inits, np.int32),
-                                      device=self.device)
+        self._set_tables(aa_rows, crc_inits)
         self.truncated_channels = int(truncated_channels)
 
     def apply_control_registers(self, writes):
@@ -245,16 +322,14 @@ class WidebandSniffer:
         receiver hears all 40 channels at once, so the reference's
         channel-retune register is a no-op here."""
         aa_rows = self._aa_host.copy()
-        crc_rows = self.crc_inits.cpu().numpy().copy()
-        adv = self.adv_flags.cpu().numpy()
+        crc_rows = self._crc_host.copy()
+        adv = _default_scan_arrays()[4]
         for idx, val in writes:
             if idx == REG_ACCESS_ADDR:
                 aa_rows[~adv] = B.hex_to_bits(int(val).to_bytes(4, "little").hex())
             elif idx == REG_CRC_INIT:
                 crc_rows[~adv] = C.crc_init_reorder(int(val))
-        self._aa_host = aa_rows
-        self.aa_rows = torch.as_tensor(aa_rows, device=self.device)
-        self.crc_inits = torch.as_tensor(crc_rows, device=self.device)
+        self._set_tables(aa_rows, crc_rows)
 
     def selftest(self) -> dict:
         """Known-answer self-test of exactly this sniffer's pipeline and
@@ -265,6 +340,7 @@ class WidebandSniffer:
 
         if self.cfg.fused:
             return fused_selftest(compute_dtype=self.cfg.fused_dtype,
+                                  tile=self.cfg.fused_tile,
                                   phy=self.cfg.phy, device=self.device)
         return fused_selftest(pipeline="xla", phy=self.cfg.phy,
                               device=self.device)
@@ -318,8 +394,8 @@ class WidebandSniffer:
         step = self.cfg.scan_len_ch * D
         self._ctx_i = xi[step : step + self._ctx_len].copy()
         self._ctx_q = xq[step : step + self._ctx_len].copy()
-        dxi = as_tensor(xi, self.device)
-        dxq = as_tensor(xq, self.device)
+        dxi = self._upload(xi)
+        dxq = self._upload(xq)
         args = (dxi, dxq, self.aa_rows, self.aa_mask, self.whiten_rows,
                 self.crc_inits, self.adv_flags)
         if self.cfg.fused:
@@ -376,6 +452,13 @@ class WidebandSniffer:
                     # scan owns them
                     break
         self._offset_ch += scan_limit
+        if self.hop_tracker is not None:
+            self.hop_tracker.on_tick(self._offset_ch // CH_SPS)
+        if self.multi_follower is not None:
+            # connections hop on their interval clocks: re-key each
+            # connection's newly occupied channel for the next block
+            if self.multi_follower.on_tick(self._offset_ch // CH_SPS):
+                self._apply_follow_tables()
         return packets
 
     def _channel_aa(self, m: int) -> int:
@@ -412,9 +495,35 @@ class WidebandSniffer:
                 access_addr=self._channel_aa(m),
             )
             self._attach_parse(pkt, adv)
+            self._maybe_follow(pkt, adv)
             packets.append(pkt)
             self._cursors[m] = abs_p + (32 + 16 + (pl + 3) * 8) * self._sps
         return int(row["num_hits"]) > len(pos)
+
+    def _maybe_follow(self, pkt: WidebandPacket, adv: bool):
+        """CONNECT_REQ handling + hop bookkeeping (follow_connections)."""
+        now_us = pkt.sample_pos // CH_SPS
+        if self.multi_follower is not None:
+            if self.multi_follower.on_packet(pkt, adv, now_us):
+                self._apply_follow_tables()
+            return
+        if self.hop_tracker is None:
+            return
+        if adv:
+            res = try_track_connection(self.hop_tracker, pkt, now_us,
+                                       self._aa_host, self._crc_host)
+            if res is not None:
+                self.connection = res[0]
+                self._set_tables(res[1], res[2])
+        elif pkt.crc_ok:
+            self.hop_tracker.on_crc_ok_packet(now_us)
+            ctrl = getattr(pkt.payload, "ctrl", None)
+            if ctrl is not None:
+                # apply sniffed map/interval updates (ll.hop.on_ll_ctrl)
+                self.hop_tracker.on_ll_ctrl(ctrl.opcode, ctrl.fields, now_us)
+
+    def _apply_follow_tables(self):
+        self._set_tables(*self.multi_follower.tables())
 
     def _attach_parse(self, pkt: WidebandPacket, adv: bool):
         try:

@@ -6,18 +6,23 @@ toolkit: ``python3 chip_smoke.py``. It builds every hand-written kernel
 from ``btle_tpu_torch/csrc`` (into ``build/``), then runs, printing one
 JSON line per phase:
 
-  0. device: torch version, card name and power limit (nvidia-smi);
+  0. device: torch version, card name and power limit, clocks (nvidia-smi);
   1. build: seconds to compile the kernels (one nvcc per source, in
      parallel) and each kernel's ptxas register / shared-memory report;
   2. kernels: each kernel against its plain PyTorch twin on the card, on
      one bench-geometry block with packets in it (131072 + 1476 channel
-     samples, 1280-tap prototype, 16 candidate slots); the narrowband
+     samples, 1280-tap prototype, 16 candidate slots), the filterbank in
+     every numerics class (K1 bf16x2w, K3 f32 polyx, K5 bf16 / f32x2 /
+     f32 im2col) and each against one cuDNN convolution computing the
+     same y (timed later as its yardstick); the narrowband
      scan on a 131072 + 1473-sample int16 block at sps 4 / lag 1, at
      sps 8 / lag 8, with an all-zero care mask and on the 40 float
      channel rows of the wideband block with per-row access addresses;
      the candidate decode with clamped tails on candidates at the
      lattice's end;
-  3. self-test: the known-answer self-test in both fused modes;
+  3. self-test: the known-answer self-test in both fused modes, then the
+     knob matrix (wideband.knobmatrix: every shipped and supported
+     compute_dtype / inner / decode / PHY row; every "pass" row must);
   4. main path: WidebandSniffer(fused=True).run() over a 4-block
      (131 ms) scene with ADV and LL data packets, a packet across a block
      boundary and a channel with more packets than candidate slots, in
@@ -34,8 +39,22 @@ JSON line per phase:
      decode launched; golden_decode at sps 8 on one packet;
   6. CLI: ``python -m btle_tpu_torch.cli decode --json`` on the scene
      written as an i16 file; its NDJSON must equal the library run's;
+  6b. wideband CLI: 0.2 s of 80 Msps air (ADV traffic on 37/38/39, two
+     CONNECT_REQs, LL data packets on each connection's hop channels),
+     written as i8 for "bf16" and as f32 for "bf16x2w" and "f32"; per
+     mode the library WidebandStreamRunner (scan_len_ch 8192, follow, 2
+     connections, NDJSON, pcap), then ``python -m btle_tpu_torch.cli
+     wideband --fused --fused-dtype MODE --follow --max-follow 2 --json
+     --pcap`` in a child process: every injected packet CRC-OK and
+     byte-exact on its channel, no other, track_start for both access
+     addresses, the same hop events in every mode, the CLI's NDJSON equal
+     to the library's, the pcap holding the CRC-OK packets; then run_live
+     (pipeline 2) over the native ring preloaded with the scene: the same
+     packets as the file run, its real-time factor, its host/device split
+     and a profile;
   7. timing: wideband_scan_fused over 8 distinct device-resident noise
-     blocks (as bench.py), median Msps per mode; per-kernel time, its
+     blocks (as bench.py), median Msps per CLI mode, the clocks right
+     after; per-kernel time, its
      twin's time, the bound, and for each filterbank one cuDNN
      convolution computing the same y as yardstick; the narrowband
      real-time factor (air seconds per wall second, median of 3 runs)
@@ -64,6 +83,12 @@ ROOT = Path(__file__).resolve().parent
 SCAN_LEN = 131072
 MAX_CANDIDATES = 16
 NUM_TAPS = 1280
+# the filterbank kernels: (compute_dtype, inner) -> the kernel's name
+FILTERBANK_MODES = (("bf16x2w", None, "filterbank_bf16x2w"),
+                    ("f32", None, "filterbank_polyx_f32"),
+                    ("bf16", None, "filterbank_im2col_bf16"),
+                    ("f32x2", None, "filterbank_im2col_f32x2"),
+                    ("f32", "im2col", "filterbank_im2col_f32"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # dense tensor-core bf16
 FP32_FLOPS = 67e12              # CUDA-core fp32 (also counted for int ops)
@@ -85,14 +110,31 @@ CONN_HOP = 9
 CONN_INTERVAL = 40
 HOP_GUARD_US = 7000             # ll.hop.GUARD_US
 
+# wideband CLI scene: 0.2 s of 80 Msps air at int8 amplitude, scanned in
+# the CLI's 8192-sample blocks (2.048 ms of air); two connections whose
+# intervals (20 and 25 ms) the per-block hop tick follows
+WB_AIR_S = 0.2
+WB_SCAN_LEN = 8192
+WB_BLOCK_US = WB_SCAN_LEN // 4
+WB_AMPLITUDE = 40.0
+WB_NOISE_STD = 2.0
+WB_CONNS = ((0x60850A1B, "a77b22", 7, 16, 37, 1000),    # AA, CRC, hop,
+            (0x50A1B2C4, "55aa11", 11, 20, 38, 3500))   # interval, channel, t_us
+CLI_MODES = (("bf16", "i8"), ("bf16x2w", "f32"), ("f32", "f32"))
+
 
 def log(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
+# what nvidia-smi reads beside the timings: compute-bound kernels scale
+# with the SM clock, which a card may hold below its maximum
+CLOCKS_QUERY = "clocks.sm,clocks.max.sm,clocks.mem,power.draw,temperature.gpu"
+
+
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -163,15 +205,17 @@ def nb_burst(pdu, ch: int, aa: int = ADV_AA, crc_hex: str = "555555",
     return gfsk_modulate_float(bits, sps, amplitude)
 
 
-def connect_req_pdu() -> np.ndarray:
-    """CONNECT_REQ to CONN_AA / CONN_CRC_HEX, hop CONN_HOP, interval
-    CONN_INTERVAL, all 37 data channels used (tests/test_hop.py's)."""
+def connect_req_pdu(aa: int = CONN_AA, crc_hex: str = CONN_CRC_HEX,
+                    hop: int = CONN_HOP, interval: int = CONN_INTERVAL) -> np.ndarray:
+    """CONNECT_REQ to access address aa, CRC init crc_hex, hop increment
+    hop, interval in 1.25 ms units, all 37 data channels used
+    (tests/test_hop.py's, by default CONN_*)."""
     payload = (bytes.fromhex("001830EA965F")[::-1] + bytes.fromhex("90D7EBB19299")[::-1]
-               + CONN_AA.to_bytes(4, "little") + bytes.fromhex(CONN_CRC_HEX)
+               + aa.to_bytes(4, "little") + bytes.fromhex(crc_hex)
                + bytes([0x02]) + (0x000F).to_bytes(2, "little")
-               + CONN_INTERVAL.to_bytes(2, "little") + (0).to_bytes(2, "little")
+               + interval.to_bytes(2, "little") + (0).to_bytes(2, "little")
                + (0x07D0).to_bytes(2, "little") + bytes.fromhex("1FFFFFFFFF")[::-1]
-               + bytes([CONN_HOP | (5 << 5)]))
+               + bytes([hop | (5 << 5)]))
     return np.frombuffer(bytes([0x05, len(payload)]) + payload, np.uint8)
 
 
@@ -218,6 +262,79 @@ def narrowband_scene(seed: int = 7):
         want.append((ch, aa, pdu.astype(np.uint8).tobytes()))
     clip = lambda x: np.clip(np.round(x), -32768, 32767).astype(np.int16)
     return clip(i), clip(q), want
+
+
+def wideband_cli_scene(air_s: float = WB_AIR_S, seed: int = 21):
+    """air_s seconds of 80 Msps air at int8 amplitude: ADV_NONCONN_IND of
+    6-30 payload bytes every 4 ms rotating over 37/38/39, the two
+    CONNECT_REQs of WB_CONNS, and per connection LL data packets (LLID 1,
+    2-27 payload bytes) on its hop channels: the first two blocks after
+    its CONNECT_REQ's block, each later one in the second block after the
+    hop tick that moves the connection on (the first tick more than
+    interval - 7 ms after the previous packet). One block of slack on
+    each side of a retune keeps every packet keyed alike whether the
+    re-keyed tables reach the next block (file run) or the one after
+    (run_live at pipeline 2). Returns (i, q int8, [(channel, access
+    address, pdu bytes)])."""
+    from btle_tpu_torch.wideband import compose_wideband
+
+    rng = np.random.default_rng(seed)
+    n = int(air_s * 80e6)
+    end_us = int(air_s * 1e6) - 4000
+    plan = [(t, ch, ADV_AA, "555555", connect_req_pdu(aa, crc, hop, interval))
+            for aa, crc, hop, interval, ch, t in WB_CONNS]
+    for k, t in enumerate(range(2200, end_us, 4000)):
+        payload = rng.integers(0, 256, int(rng.integers(6, 31)), dtype=np.uint8)
+        plan.append((t, (37, 38, 39)[k % 3], ADV_AA, "555555",
+                     np.concatenate([[0x02, len(payload)], payload])))
+    owned = {}                       # aa -> [(from_us, channel)]
+    for aa, crc, hop, interval, _, t_cr in WB_CONNS:
+        block = t_cr // WB_BLOCK_US + 2
+        chan, owned[aa] = hop % 37, [(t_cr, hop % 37)]
+        while True:
+            t = block * WB_BLOCK_US + 300 + int(rng.integers(0, 1200))
+            # the tracker marks the packet ~20 us after t (preamble and
+            # filter delay): keep t + interval - guard clear of a tick
+            due = t + interval * 1250 - HOP_GUARD_US
+            if (due + 250) // WB_BLOCK_US != due // WB_BLOCK_US:
+                t += 300
+                due += 300
+            if t > end_us:
+                break
+            payload = rng.integers(0, 256, int(rng.integers(2, 28)), dtype=np.uint8)
+            plan.append((t, chan, aa, crc,
+                         np.concatenate([[0x01, len(payload)], payload])))
+            tick = due // WB_BLOCK_US + 1
+            chan = (chan + hop) % 37
+            owned[aa].append((tick * WB_BLOCK_US, chan))
+            block = tick + 1
+        # no packet after the last retune: the tracker skips on every
+        # interval - 4 ms
+        t_hop = owned[aa][-1][0]
+        while t_hop < end_us:
+            t_hop = ((t_hop + interval * 1250 - 4000) // WB_BLOCK_US + 1) * WB_BLOCK_US
+            chan = (chan + hop) % 37
+            owned[aa].append((t_hop, chan))
+    # a data packet must not fall where the other connection owns its
+    # channel, now or one block before (the earlier-registered connection
+    # would key it)
+    for t, ch, aa, _, _ in plan:
+        for other, spans in owned.items():
+            held = {c for k, (start, c) in enumerate(spans)
+                    if start <= t and (k + 1 == len(spans)
+                                       or spans[k + 1][0] > t - WB_BLOCK_US)}
+            if other != aa and ch not in (37, 38, 39) and ch in held:
+                raise AssertionError(f"scene: channel {ch} collides at {t} us")
+    placements, want = [], []
+    for t, ch, aa, crc_hex, pdu in sorted(plan, key=lambda p: p[0]):
+        ci, cq = nb_burst(pdu, ch, aa, crc_hex, sps=80, amplitude=WB_AMPLITUDE)
+        placements.append((ch, t * 80, ci.astype(np.float32), cq.astype(np.float32)))
+        want.append((ch, aa, pdu.astype(np.uint8).tobytes()))
+    wi, wq = compose_wideband(placements, n)
+    wi += rng.normal(0, WB_NOISE_STD, n).astype(np.float32)
+    wq += rng.normal(0, WB_NOISE_STD, n).astype(np.float32)
+    clip = lambda x: np.clip(np.round(x), -127, 127).astype(np.int8)
+    return clip(wi), clip(wq), want
 
 
 def pcap_records(raw: bytes):
@@ -270,25 +387,29 @@ def check_kernels(dev):
     xi, xq = torch.as_tensor(wi, device=dev), torch.as_tensor(wq, device=dev)
     aa, mask, whiten, crc, adv = default_scan_tables(dev)
     operands, report = {}, {}
-    for mode, name in (("bf16x2w", "filterbank_bf16x2w"),
-                       ("f32", "filterbank_polyx_f32")):
+    # every filterbank kernel forms the same exact products as its twin
+    # (bf16 x bf16, hi+lo sums and f32 x f32 are exact in float32) and
+    # sums them in another order: max |dy| within 1e-5 of max |y|
+    for mode, inner, name in FILTERBANK_MODES:
         fb_args, tail_args = fused.frontend_operands(
-            xi, xq, aa, mask, NUM_TAPS, True, 4, 4, mode, 1.0, dev)
-        kern, twin = fused.FILTERBANKS[mode]
+            xi, xq, aa, mask, NUM_TAPS, True, 4, 4, mode, 1.0, dev, inner)
+        kern, twin = fused.FILTERBANKS[fused.filterbank_kind(mode, inner)]
         y, y_ref = kern(*fb_args), twin(*fb_args)
         torch.cuda.synchronize()
         err = float((y - y_ref).abs().max())
         scale = float(y_ref.abs().max())
         ok = err <= 1e-5 * scale and bool(torch.isfinite(y).all())
         report[name] = {"max_abs_err": err, "max_abs_y": scale, "ok": ok}
-        operands[mode] = (fb_args, tail_args, y_ref)
+        operands[name] = (fb_args, tail_args, y_ref)
         if not ok:
             raise AssertionError(f"{name} disagrees with its twin: {report[name]}")
 
-    library = filterbank_library_calls(xi, xq, operands)
-    for name, mode, tol in (("filterbank_bf16x2w", "bf16x2w", 1e-2),
-                            ("filterbank_polyx_f32", "f32", 1e-5)):
-        y_ref = operands[mode][2]
+    library = filterbank_library_calls(operands)
+    for name, tol in (("filterbank_bf16x2w", 1e-2), ("filterbank_polyx_f32", 1e-5),
+                      ("filterbank_im2col_bf16", 1e-2),
+                      ("filterbank_im2col_f32x2", 1e-2),
+                      ("filterbank_im2col_f32", 1e-5)):
+        y_ref = operands[name][2]
         err = float((library[name]() - y_ref).abs().max())
         report[name]["library_max_abs_err"] = err
         if not err <= tol * float(y_ref.abs().max()):
@@ -296,7 +417,7 @@ def check_kernels(dev):
                                  f"another function: max |dy| {err}")
 
     tail_err, n_hits = 0.0, 0
-    for mode in ("bf16x2w", "f32"):
+    for mode in ("filterbank_bf16x2w", "filterbank_polyx_f32"):
         _, tail_args, y_ref = operands[mode]
         got = fused.demod_tail(y_ref, *tail_args)
         want = fused.demod_tail_reference(y_ref, *tail_args)
@@ -313,7 +434,7 @@ def check_kernels(dev):
     if n_hits < len(plan):
         raise AssertionError(f"only {n_hits} AA hits for {len(plan)} packets")
 
-    _, tail_args, y_ref = operands["bf16x2w"]
+    _, tail_args, y_ref = operands["filterbank_bf16x2w"]
     bits, hit, _ = fused.demod_tail(y_ref, *tail_args)
     pos, _, _ = earliest_hits(hit, MAX_CANDIDATES)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -331,38 +452,49 @@ def check_kernels(dev):
     return report, operands, (bits, pos, whiten, crc, adv), library, (xi, xq, aa, mask)
 
 
-def filterbank_library_calls(xi, xq, operands) -> dict:
-    """One cuDNN convolution per filterbank computing the same y, timed as
-    a yardstick only (the port never calls them):
-      filterbank_bf16x2w: the bf16 frames with the (160, 40, width) hi/lo
-        weights on tensor cores, then the hi and lo halves summed in f32.
-        cuDNN writes the halves in bf16, so the yardstick rounds each half
-        to 8 mantissa bits, which K1 does not (checked to 1e-2 of max|y|);
-      filterbank_polyx_f32: the f32 frames with the folded (80, 40, width)
-        f32 weights (channelizer._fused_kernel) in true FP32."""
+def filterbank_library_calls(operands) -> dict:
+    """One cuDNN convolution per filterbank kernel computing the same y,
+    timed as a yardstick only (the port never calls them): the kernel's
+    own frames with its im2col weight table unfolded to (rows, frame
+    rows, width) —
+      filterbank_bf16x2w, filterbank_im2col_f32x2: bf16 on tensor cores,
+        the (160, ., width) hi/lo rows, then the hi and lo halves summed
+        in f32 (at f32x2 over the 80 [xhi; xlo] frame rows);
+      filterbank_im2col_bf16: bf16, the (80, 40, width) hi weights;
+      filterbank_im2col_f32, filterbank_polyx_f32 (the same function):
+        float32 frames and the folded (80, 40, width) weights in true FP32.
+    cuDNN writes bf16 outputs, so the bf16 yardsticks round y (or each
+    half) to 8 mantissa bits, which the kernels do not (checked to 1e-2
+    of max|y|)."""
     import torch
 
-    from btle_tpu_torch.wideband.channelizer import _fused_kernel, frame_rows, true_fp32
+    from btle_tpu_torch.wideband.channelizer import true_fp32
 
-    frames, gk, width, ky = operands["bf16x2w"][0]
-    n_chunks, rows, cols = gk.shape
-    w_hilo = (gk.reshape(n_chunks, rows, cols // 40, 40).permute(1, 3, 0, 2)
-              .reshape(rows, 40, -1)[:, :, :width].contiguous())
-    x_bf16 = frames[None]
+    calls = {}
+    for name in ("filterbank_bf16x2w", "filterbank_im2col_bf16",
+                 "filterbank_im2col_f32x2", "filterbank_im2col_f32"):
+        frames, gk, width = operands[name][0][:3]
+        n_chunks, rows, cols = gk.shape
+        fb_rows = frames.shape[0]
+        w = (gk.reshape(n_chunks, rows, cols // fb_rows, fb_rows).permute(1, 3, 0, 2)
+             .reshape(rows, fb_rows, -1)[:, :, :width].contiguous())
 
-    def bf16x2w():
-        y2 = torch.nn.functional.conv1d(x_bf16, w_hilo)[0]
-        return y2[:80].to(torch.float32) + y2[80:].to(torch.float32)
+        def call(x=frames[None], w=w):
+            with true_fp32():
+                y = torch.nn.functional.conv1d(x, w)[0].to(torch.float32)
+            return y if y.shape[0] == 80 else y[:80] + y[80:]
+        calls[name] = call
+    calls["filterbank_polyx_f32"] = calls["filterbank_im2col_f32"]
+    return calls
 
-    f_t = frame_rows(xi, xq, NUM_TAPS, True)
-    x_f32 = torch.nn.functional.pad(f_t, (0, ky + width - 1 - f_t.shape[1]))[None]
-    w_f32 = torch.as_tensor(_fused_kernel(NUM_TAPS, 1.0), device=xi.device)
 
-    def polyx_f32():
-        with true_fp32():
-            return torch.nn.functional.conv1d(x_f32, w_f32)[0]
+def zero_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
 
-    return {"filterbank_bf16x2w": bf16x2w, "filterbank_polyx_f32": polyx_f32}
+
+def read_launches(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
 
 
 def run_main_path(dev, mode: str, wi, wq, injected, kernels):
@@ -372,12 +504,11 @@ def run_main_path(dev, mode: str, wi, wq, injected, kernels):
                                         scan_len_ch=SCAN_LEN,
                                         max_candidates=MAX_CANDIDATES),
                          device=dev)
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     pkts = sn.run(wi, wq)
     seconds = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_launches(kernels)
     got = sorted((p.channel, p.pdu_bytes.tobytes()) for p in pkts if p.crc_ok)
     want = sorted((ch, pdu.tobytes()) for ch, pdu in injected)
     missing = [w for w in want if w not in got]
@@ -432,10 +563,9 @@ def run_narrowband(dev, i, q, want, kernels) -> dict:
     launch counts zeroed just before and read just after."""
     runs = {}
     for scan_len in (SCAN_LEN, NB_LIVE_SCAN_LEN):
-        for k in kernels:
-            k.launches = 0
+        zero_launches(kernels)
         sn, events, ndjson, pcap, seconds = sniff_narrowband(dev, i, q, scan_len)
-        launches = {k.name: k.launches for k in kernels}
+        launches = read_launches(kernels)
         recs = pcap_records(pcap)
         if len(recs) != len(events):
             raise AssertionError("pcap records and packet events differ in number")
@@ -523,6 +653,206 @@ def run_cli(i, q, library_ndjson: str) -> dict:
         raise AssertionError(f"decode CLI: rc {proc.returncode}, stderr "
                              f"{proc.stderr[-2000:]}")
     return line
+
+
+def run_knob_matrix(dev, kernels) -> dict:
+    """Phase 3b: every knob-matrix row's self-test on the card."""
+    from btle_tpu_torch.wideband import knobmatrix
+
+    zero_launches(kernels)
+    rows = knobmatrix.run(dev)
+    launches = read_launches(kernels)
+    failed = [r for r in rows if r["expected"] == "pass" and r["status"] != "pass"]
+    log({"phase": "knob_matrix", "rows": rows, "failed": len(failed),
+         "launches": launches})
+    if failed:
+        raise AssertionError(f"knob matrix: {len(failed)} rows failed: {failed[:2]}")
+    return launches
+
+
+def wideband_runner(dev, mode: str, ndjson_buf, pcap_buf):
+    """The CLI's WidebandStreamRunner for ``wideband --fused --fused-dtype
+    MODE --follow --max-follow 2 --json --pcap``, writing to memory."""
+    from btle_tpu_torch.stream import NdjsonEmitter, PcapWriter
+    from btle_tpu_torch.wideband import WidebandConfig, WidebandSniffer
+    from btle_tpu_torch.wideband.stream import WidebandStreamRunner
+
+    sn = WidebandSniffer(WidebandConfig(follow_connections=True, max_follow=2,
+                                        fused=True, fused_dtype=mode,
+                                        scan_len_ch=WB_SCAN_LEN), device=dev)
+    return WidebandStreamRunner(sn, ndjson=NdjsonEmitter(ndjson_buf),
+                                pcap=PcapWriter(pcap_buf))
+
+
+def packet_keys(pkts) -> list:
+    return [(p.channel, p.sample_pos, p.crc_ok, p.access_addr,
+             p.pdu_bytes.tobytes()) for p in pkts]
+
+
+def hop_keys(runner) -> list:
+    return [(e.event, e.channel, e.access_addr, e.time_us)
+            for e in runner.follow_events()]
+
+
+def check_wideband_packets(label: str, pkts, want) -> dict:
+    got = sorted((p.channel, p.access_addr, p.pdu_bytes.tobytes())
+                 for p in pkts if p.crc_ok)
+    missing = [w for w in sorted(want) if w not in got]
+    extra = [g for g in got if g not in want]
+    if missing or extra or len(got) != len(want):
+        raise AssertionError(f"{label}: missing {missing[:3]}, extra {extra[:3]}")
+    return {"crc_ok": len(got), "missing": 0, "extra": 0}
+
+
+def timed_sniffer(sn) -> dict:
+    """Wrap a sniffer's dispatch, result wait and consume in host timers:
+    {"dispatch_s", "wait_s", "consume_s"} (consume includes the wait)."""
+    acc = {"dispatch_s": 0.0, "wait_s": 0.0, "consume_s": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return call
+    sn.scan_async = timed(sn.scan_async, "dispatch_s")
+    sn._wait = timed(sn._wait, "wait_s")
+    sn.consume_scan = timed(sn.consume_scan, "consume_s")
+    return acc
+
+
+def run_live_ring(dev, mode: str, wi, wq, pipeline: int = 2, timers: bool = False):
+    """run_live over the native ring preloaded with the scene (int8 pairs)
+    and one block of quiet air, NDJSON and pcap to memory:
+    (runner, packets, stats, host timers or None)."""
+    from btle_tpu_torch import runtime
+
+    if not runtime.available():
+        raise AssertionError("the native runtime did not build")
+    runner = wideband_runner(dev, mode, io.StringIO(), io.BytesIO())
+    sn = runner.sn
+    inter = np.zeros(2 * (len(wi) + sn.wb_block_len), np.int8)
+    inter[0:2 * len(wi):2], inter[1:2 * len(wi):2] = wi, wq
+    ring = runtime.IqRingBuffer(1 << (len(inter) // 2).bit_length())
+    if ring.write(inter, "i8") != len(inter) // 2:
+        raise AssertionError("the ring dropped samples while preloading")
+    pkts = []
+
+    def consume(handle, inner=runner.consume):
+        got = inner(handle)
+        pkts.extend(got)
+        return got
+    runner.consume = consume
+    acc = timed_sniffer(sn) if timers else None
+    step, halo = WB_SCAN_LEN * 20, sn.halo_ch * 20
+    runner.start()
+    stats = runner.run_live(ring, should_stop=lambda: ring.available_pairs < step + halo,
+                            pipeline=pipeline)
+    runner.stop()
+    ring.close()
+    return runner, pkts, stats, acc
+
+
+def run_wideband_cli(dev, kernels) -> tuple[dict, dict]:
+    """Phase 6b: the wideband CLI scene through the library runner, the
+    CLI in a child process and run_live, in every CLI mode."""
+    import torch
+
+    t0 = time.perf_counter()
+    wi, wq, want = wideband_cli_scene()
+    scene_s = time.perf_counter() - t0
+    air_s = len(wi) / 80e6
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = {"i8": out_dir / "wideband.i8", "f32": out_dir / "wideband.f32"}
+    for fmt, path in files.items():
+        inter = np.empty(2 * len(wi), np.int8 if fmt == "i8" else np.float32)
+        inter[0::2], inter[1::2] = wi, wq
+        inter.tofile(path)
+        del inter
+    fi, fq = wi.astype(np.float32), wq.astype(np.float32)
+    launches = {k.name: 0 for k in kernels}
+    report, hops = {}, {}
+    try:
+        for mode, fmt in CLI_MODES:
+            # the library run of the CLI's command
+            buf, pc = io.StringIO(), io.BytesIO()
+            runner = wideband_runner(dev, mode, buf, pc)
+            zero_launches(kernels)
+            t1 = time.perf_counter()
+            runner.start()
+            pkts = runner.run_capture(fi, fq)
+            runner.stop()
+            torch.cuda.synchronize()
+            lib_s = time.perf_counter() - t1
+            got = read_launches(kernels)
+            line = {"mode": mode, "format": fmt, "blocks": runner.stats.blocks,
+                    "library_s": lib_s, "scheduled": len(want),
+                    **check_wideband_packets(f"wideband library ({mode})", pkts, want)}
+            hops[mode] = hop_keys(runner)
+            started = {e[2] for e in hops[mode] if e[0] == "track_start"}
+            if started != {c[0] for c in WB_CONNS}:
+                raise AssertionError(f"wideband ({mode}): track_start for {started}")
+            recs = pcap_records(pc.getvalue())
+            if sorted(recs) != sorted((p.channel, p.access_addr, p.pdu_bytes.tobytes())
+                                      for p in pkts if p.crc_ok):
+                raise AssertionError(f"wideband ({mode}): pcap differs from the packets")
+            for name, n in got.items():
+                launches[name] += n
+            # the CLI in a child process on the same file
+            pcap_path = out_dir / f"wideband-{mode}.pcap"
+            cmd = [sys.executable, "-m", "btle_tpu_torch.cli", "wideband", "--bin",
+                   str(files[fmt]), "--format", fmt, "--fused", "--fused-dtype", mode,
+                   "--follow", "--max-follow", "2", "--json", "--pcap", str(pcap_path)]
+            t1 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                                  timeout=300)
+            cli_s = time.perf_counter() - t1
+            lines = ndjson_without_ts(proc.stdout) if proc.returncode == 0 else []
+            cli_pcap = pcap_path.read_bytes() if pcap_path.exists() else b""
+            line.update({"cli_rc": proc.returncode, "cli_s": cli_s,
+                         "ndjson_lines": len(lines),
+                         "cli_equal_to_library": lines == ndjson_without_ts(buf.getvalue()),
+                         "cli_pcap_records": len(pcap_records(cli_pcap)),
+                         "cli_summary": proc.stderr.strip().splitlines()[-3:]})
+            if proc.returncode != 0 or not line["cli_equal_to_library"] \
+                    or pcap_records(cli_pcap) != recs:
+                raise AssertionError(f"wideband CLI ({mode}): rc {proc.returncode}, "
+                                     f"stderr {proc.stderr[-2000:]}")
+            # run_live over the ring: the same packets as the file run
+            zero_launches(kernels)
+            _, live_pkts, stats, acc = run_live_ring(dev, mode, wi, wq, timers=True)
+            for name, n in read_launches(kernels).items():
+                launches[name] += n
+            if packet_keys(live_pkts) != packet_keys(pkts):
+                raise AssertionError(f"wideband run_live ({mode}) differs from the file run")
+            live_air = stats.blocks * WB_BLOCK_US * 1e-6
+            line["live"] = {"pipeline": 2, "blocks": stats.blocks,
+                            "wall_s": stats.wall_s, "air_s": live_air,
+                            "realtime_factor": live_air / stats.wall_s,
+                            "ms_per_block": 1e3 * stats.wall_s / stats.blocks,
+                            "dropped_pairs": stats.dropped_pairs,
+                            "host_ms_per_block": {k: 1e3 * v / stats.blocks
+                                                  for k, v in acc.items()},
+                            "equal_to_file_run": True}
+            line["launches"] = got
+            report[mode] = line
+            log({"phase": "wideband_cli", **line})
+    finally:
+        for path in [*files.values(), *out_dir.glob("wideband-*.pcap")]:
+            path.unlink(missing_ok=True)
+    first = hops[CLI_MODES[0][0]]
+    if any(h != first for h in hops.values()):
+        raise AssertionError("the hop events differ between modes")
+    log({"phase": "wideband_cli_hops", "air_s": air_s, "scene_s": scene_s,
+         "events": len(first), "first": first[:4], "equal_across_modes": True})
+    profiles = {mode: device_profile(lambda m=mode: run_live_ring(dev, m, wi, wq),
+                                     report[mode]["live"]["blocks"])
+                for mode, _ in CLI_MODES}
+    log({"phase": "profile_wideband_live", "pipeline": 2, **profiles})
+    return report, launches
 
 
 def check_narrowband_kernels(dev, nb_block, wb_operands) -> dict:
@@ -738,33 +1068,45 @@ def bound(nbytes: float, ops: float, rate: float):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_device_ms(fn, kernel_name: str, reps: int) -> float:
-    """Device time per call of the CUDA kernel named ``kernel_name``, from
+def kernel_device_ms(fn, kernel_name: str, reps: int, tries: int = 3):
+    """Device time per launch of the CUDA kernel named ``kernel_name``, from
     torch.profiler over ``reps`` calls of ``fn`` — the kernel alone,
-    without the wrapper's host work. Raises if the profiler saw no device
-    time for it."""
+    without the wrapper's host work: (ms, launches the profiler recorded).
+    A profile on the H100 has come back without the record of one of the
+    launches, and once without any, so the time is the recorded device
+    time over the recorded launches, and a profile with none is reported
+    on stderr and the calls profiled again. Raises if ``tries`` profiles
+    in a row recorded no launch of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0)
-                for e in prof.key_averages() if kernel_name in e.key)
-    if total <= 0:
-        raise AssertionError(f"the profiler recorded no device time for "
-                             f"{kernel_name}")
-    return total / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        stats = prof.key_averages()
+        found = [e for e in stats if kernel_name in e.key]
+        launches = sum(e.count for e in found)
+        total = sum(getattr(e, "self_device_time_total", 0.0) for e in found)
+        if launches and total > 0:
+            return total / 1e3 / launches, launches
+        print(f"chip_smoke: a profile recorded no launch of "
+              f"{kernel_name}; keys seen: {[e.key[:60] for e in stats][:8]}",
+              file=sys.stderr, flush=True)
+    raise AssertionError(f"the profiler recorded no launch of "
+                         f"{kernel_name} in {tries} profiles")
 
 
 def kernel_times(kernel, fn, twin, reps: int, library=None) -> dict:
-    """ms: the kernel's device time (profiler); wrapper_ms: CUDA events
-    around the wrapper call, host work included; plain_ms: the twin and
-    library_ms the library yardstick, CUDA events."""
-    return {"ms": kernel_device_ms(fn, f"{kernel.name}_kernel", reps),
+    """ms: the kernel's device time (profiler; profiled: the launches it
+    recorded of ``reps``); wrapper_ms: CUDA events around the wrapper
+    call, host work included; plain_ms: the twin and library_ms the
+    library yardstick, CUDA events."""
+    ms, recorded = kernel_device_ms(fn, f"{kernel.name}_kernel", reps)
+    return {"ms": ms, "profiled": [recorded, reps],
             "wrapper_ms": cuda_time_ms(fn, reps),
             "plain_ms": cuda_time_ms(twin, 3, 1),
             "library_ms": None if library is None else cuda_time_ms(library, reps)}
@@ -777,7 +1119,7 @@ def time_kernels(operands, decode_args, library) -> dict:
     from btle_tpu_torch.wideband import fused
 
     out = {}
-    fb, _, _ = operands["bf16x2w"]
+    fb, _, _ = operands["filterbank_bf16x2w"]
     frames, gk, width, ky = fb
     rows = gk.shape[1]
     out["filterbank_bf16x2w"] = {
@@ -789,7 +1131,23 @@ def time_kernels(operands, decode_args, library) -> dict:
             frames.numel() * 2 + gk.numel() * 2 + 80 * ky * 4,
             2 * rows * 40 * width * ky, BF16_FLOPS))),
     }
-    fb, _, _ = operands["f32"]
+    for name, rate, products in (("filterbank_im2col_bf16", BF16_FLOPS, 1),
+                                 ("filterbank_im2col_f32x2", BF16_FLOPS, 4),
+                                 ("filterbank_im2col_f32", FP32_FLOPS, 1)):
+        fb, _, _ = operands[name]
+        frames, gk, width, ky, kind = fb
+        out[name] = {
+            **kernel_times(fused.FILTERBANK_IM2COL[kind],
+                           lambda fb=fb: fused.filterbank_im2col(*fb),
+                           lambda fb=fb: fused.filterbank_im2col_reference(*fb), 10,
+                           library=library[name]),
+            # f32x2: the four bf16 products per term the function needs
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                frames.numel() * frames.element_size()
+                + gk.numel() * gk.element_size() + 80 * ky * 4,
+                products * 2 * 80 * 40 * width * ky, rate))),
+        }
+    fb, _, _ = operands["filterbank_polyx_f32"]
     f4, kcoefx, w4x, ky, _ = fb
     rows, n_slices = kcoefx.shape
     out["filterbank_polyx_f32"] = {
@@ -801,7 +1159,7 @@ def time_kernels(operands, decode_args, library) -> dict:
             (f4.numel() + kcoefx.numel() + w4x.numel() + 80 * ky) * 4,
             2 * rows * n_slices * ky + 2 * 80 * rows * ky, FP32_FLOPS))),
     }
-    _, tail, y = operands["bf16x2w"]
+    _, tail, y = operands["filterbank_bf16x2w"]
     n_bits, n_hit = tail[4], tail[5]
     out["demod_tail"] = {
         **kernel_times(fused.DEMOD_TAIL, lambda: fused.demod_tail(y, *tail),
@@ -846,12 +1204,13 @@ def main() -> int:
     smi = nvidia_smi()
     log({"phase": "device", "torch": torch.__version__,
          "cuda": torch.version.cuda, "nvidia_smi": smi,
+         "clocks": nvidia_smi(CLOCKS_QUERY),
          "name": torch.cuda.get_device_name(0),
          "count": torch.cuda.device_count()})
 
     kernels = [fused.FILTERBANK_BF16X2W, fused.FILTERBANK_POLYX_F32,
-               fused.DEMOD_TAIL, decode_kernel.DECODE_CANDIDATES,
-               scan_kernel.SCAN_BLOCK]
+               *fused.FILTERBANK_IM2COL.values(), fused.DEMOD_TAIL,
+               decode_kernel.DECODE_CANDIDATES, scan_kernel.SCAN_BLOCK]
     t0 = time.perf_counter()
     logs = _build.build([k.name for k in kernels])
     seconds = time.perf_counter() - t0
@@ -875,10 +1234,10 @@ def main() -> int:
     st["xla"] = fused_selftest(pipeline="xla", device=dev)
     log({"phase": "selftest", **{k: {str(c): p for c, p in v.items()}
                                   for k, v in st.items()}})
+    launches = run_knob_matrix(dev, kernels)
 
     plan, n_total = main_path_plan()
     wi, wq, injected = scene(plan, n_total, seed=4)
-    launches = {k.name: 0 for k in kernels}
     for mode in ("bf16x2w", "f32"):
         got = run_main_path(dev, mode, wi, wq, injected, kernels)
         for name, n in got.items():
@@ -891,6 +1250,9 @@ def main() -> int:
             launches[name] += n
     run_golden(dev, scan_kernel.SCAN_BLOCK)
     run_cli(nb_i, nb_q, nb_runs[SCAN_LEN]["ndjson"])
+    wb_report, wb_launches = run_wideband_cli(dev, kernels)
+    for name, n in wb_launches.items():
+        launches[name] += n
 
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
@@ -900,13 +1262,15 @@ def main() -> int:
     blocks = [tuple(30.0 * torch.randn(n_wb, generator=gen, device=dev)
                     for _ in range(2)) for _ in range(8)]
     scans = {mode: time_scan(dev, mode, blocks, tables)
-             for mode in ("bf16x2w", "f32")}
+             for mode, _ in CLI_MODES}
+    clocks_after_scan = nvidia_smi(CLOCKS_QUERY)
     per_kernel = time_kernels(operands, decode_args, library)
     per_kernel["scan_block"] = time_scan_kernel(nb_scan_args)
     rtf = narrowband_rtf(dev, nb_i, nb_q)
-    log({"phase": "timing", "scan": scans, "kernels": per_kernel,
-         "narrowband": rtf})
-    for mode in ("bf16x2w", "f32"):
+    log({"phase": "timing", "scan": scans, "clocks_after_scan": clocks_after_scan,
+         "kernels": per_kernel, "narrowband": rtf,
+         "wideband_live": {mode: r["live"] for mode, r in wb_report.items()}})
+    for mode, _ in CLI_MODES:
         log({"phase": "profile", **profile_scan(dev, mode, blocks, tables)})
     del blocks
     log({"phase": "profile_narrowband", **profile_narrowband(dev, nb_i, nb_q)})

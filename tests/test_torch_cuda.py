@@ -6,8 +6,11 @@ cover the other shapes the kernels take — lag 1 (odd-bin decision
 flip), sps 2 (LE 2M), the 640-tap prototype, a ragged block length,
 per-channel AA rows with care-mask holes, an all-zero care mask, float
 channel rows in the narrowband scan, candidate windows past the lattice
-end in both tail modes — and the port's device path against its CPU
-path (wideband and narrowband sniffers). They import no JAX, so they
+end in both tail modes, every (compute_dtype, inner) pair of the fused
+front end (K1, K3, K5) — every knob-matrix row's self-test, and the
+port's device path against its CPU path (wideband sniffer with and
+without connection following, its live ring loop, the narrowband
+sniffer). They import no JAX, so they
 run where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -28,7 +31,7 @@ from btle_tpu_torch.rx.decode_kernel import (DECODE_CANDIDATES, decode_candidate
 from btle_tpu_torch.spec import bits as B
 from btle_tpu_torch.spec import whitening as W
 from btle_tpu_torch.wideband import WidebandConfig, WidebandSniffer, fused_selftest
-from btle_tpu_torch.wideband import fused
+from btle_tpu_torch.wideband import fused, knobmatrix
 from btle_tpu_torch.wideband.channelizer import bin_to_channel, channel_to_bin, compose_wideband
 from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
@@ -105,6 +108,35 @@ def test_kernels_match_twins(dev, num_taps, cutoff, sps, lag, ctx, phy, n):
     assert DECODE_CANDIDATES.launches == before + 1
 
 
+@pytest.mark.parametrize("num_taps,cutoff,sps,lag,ctx,phy,n", CONFIGS)
+@pytest.mark.parametrize("dtype,inner", sorted(fused.FILTERBANK_KIND))
+def test_every_mode_matches_twin(dev, dtype, inner, num_taps, cutoff, sps, lag,
+                                 ctx, phy, n):
+    """Each (compute_dtype, inner) pair's filterbank kernel (K1, K3 or K5)
+    against its twin on the pair's operands: max |dy| within 1e-5 of max
+    |y| (the same exact products summed in another order), one launch."""
+    wi, wq = _scene(num_taps + lag, phy=phy, n=n)
+    xi, xq = torch.as_tensor(wi, device=dev), torch.as_tensor(wq, device=dev)
+    aa = torch.as_tensor(B.hex_to_bits("d6be898e"), device=dev)
+    mask = torch.ones(32, dtype=torch.int8, device=dev)
+    kind = fused.filterbank_kind(dtype, inner)
+    fb_args, _ = fused.frontend_operands(xi, xq, aa, mask, num_taps, ctx, sps,
+                                         lag, dtype, cutoff, dev, inner)
+    kern, twin = fused.FILTERBANKS[kind]
+    counters = {"bf16x2w": fused.FILTERBANK_BF16X2W, "f32": fused.FILTERBANK_POLYX_F32,
+                "bf16_poly": fused.FILTERBANK_POLYX_F32, **fused.FILTERBANK_IM2COL}
+    before = counters[kind].launches
+    y, y_ref = kern(*fb_args), twin(*fb_args)
+    assert counters[kind].launches == before + 1
+    assert y.shape == (80, fb_args[3]) and bool(torch.isfinite(y).all())
+    assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
+
+
+@pytest.mark.parametrize("label,cfg,expected", knobmatrix.config_matrix())
+def test_knob_matrix_row_on_card(dev, label, cfg, expected):
+    assert fused_selftest(device=dev, **cfg) == fused_selftest(device="cpu", **cfg)
+
+
 def _host(out):
     return {k: v.cpu().numpy() for k, v in out.items()}
 
@@ -144,6 +176,72 @@ def test_sniffer_on_card_matches_cpu_path(dev):
                        for p in b if p.crc_ok]
         assert len(key) == len(chans)
         assert got.truncated_channels == ref.truncated_channels >= 1
+
+
+def _follow_scene():
+    """Two CONNECT_REQs (37, 38) in block 0, then a data packet of each
+    connection on its first hop channel (9, 7) in block 2."""
+    rng = np.random.default_rng(12)
+    placements = []
+    for ch, aa, crc, hop, pos in ((37, 0x60850A1B, "a77b22", 9, 30_000),
+                                  (38, 0x50A1B2C4, "55aa11", 7, 80_000)):
+        pdu = np.frombuffer(bytes([0x05, 34]) + bytes.fromhex("001830EA965F")[::-1]
+                            + bytes.fromhex("90D7EBB19299")[::-1] + aa.to_bytes(4, "little")
+                            + bytes.fromhex(crc) + bytes([0x02, 0x0F, 0]) + (16).to_bytes(2, "little")
+                            + bytes(2) + (0x07D0).to_bytes(2, "little")
+                            + bytes.fromhex("1FFFFFFFFF")[::-1] + bytes([hop | (5 << 5)]),
+                            np.uint8)
+        ci, cq = gfsk_modulate_float(assemble_phy_bits(B.bytes_to_bits(pdu), ch), 80)
+        placements.append((ch, pos, ci, cq))
+        data = np.concatenate([[0x01, 9], rng.integers(0, 256, 9)]).astype(np.uint8)
+        di, dq = gfsk_modulate_float(assemble_phy_bits(
+            B.bytes_to_bits(data), hop, crc_init_hex=crc,
+            access_address_hex=aa.to_bytes(4, "little").hex()), 80)
+        placements.append((hop, 2 * 163_840 + pos, di, dq))
+    n = 4 * 163_840
+    wi, wq = compose_wideband(placements, n)
+    wi += rng.normal(0, 0.3, n).astype(np.float32)
+    wq += rng.normal(0, 0.3, n).astype(np.float32)
+    return wi, wq
+
+
+@pytest.mark.parametrize("max_follow", [1, 2])
+@pytest.mark.parametrize("mode", ["bf16", "bf16x2w", "f32"])
+def test_follow_sniffer_on_card_matches_cpu(dev, mode, max_follow):
+    """Connection following on the card: the packets, their access
+    addresses and the hop events equal the CPU path's, file and ring."""
+    from btle_tpu_torch import runtime
+    from btle_tpu_torch.wideband.stream import WidebandStreamRunner
+
+    wi, wq = _follow_scene()
+    cfg = dict(follow_connections=True, max_follow=max_follow, fused=True,
+               fused_dtype=mode)
+    out = []
+    for device in ("cpu", dev):
+        sn = WidebandSniffer(WidebandConfig(**cfg), device=device)
+        pkts = sn.run(wi, wq)
+        follower = sn.multi_follower or sn.hop_tracker
+        out.append(([(p.channel, p.sample_pos, p.access_addr, p.pdu_bytes.tobytes())
+                     for p in pkts if p.crc_ok],
+                    [(e.event, e.channel, e.access_addr, e.time_us)
+                     for e in follower.events]))
+    assert out[0] == out[1]
+    assert {p[0] for p in out[1][0]} == ({37, 38, 9, 7} if max_follow == 2
+                                         else {37, 38, 9})
+    if runtime.available():
+        runner = WidebandStreamRunner(WidebandSniffer(WidebandConfig(**cfg), device=dev))
+        inter = np.zeros(2 * (len(wi) + 200_000), np.int16)
+        inter[0:2 * len(wi):2] = np.round(wi * 64)
+        inter[1:2 * len(wi):2] = np.round(wq * 64)
+        ring = runtime.IqRingBuffer(1 << 22)
+        ring.write(inter, "i16")
+        got = []
+        consume = runner.consume
+        runner.consume = lambda h: got.extend(consume(h)) or got
+        runner.run_live(ring, pipeline=1, should_stop=lambda: ring.available_pairs
+                        < runner.sn.wb_block_len)
+        ring.close()
+        assert {p.channel for p in got if p.crc_ok} == {p[0] for p in out[1][0]}
 
 
 @pytest.mark.parametrize("kw", [dict(compute_dtype="bf16x2w"),

@@ -185,10 +185,13 @@ def test_plain_scan_matches_xla(has_context):
 
 
 def test_unported_modes_raise():
+    """Every mode and inner of the JAX package is ported now; what still
+    raises are the (compute_dtype, inner) pairs the JAX package asserts
+    against, and names it does not know."""
     wi, wq = np.zeros(20000, np.float32), np.zeros(20000, np.float32)
     aa_rows, mask, *_ = _tables()
-    with pytest.raises(NotImplementedError, match="K5"):
-        fused_frontend(wi, wq, aa_rows, mask, compute_dtype="bf16", device="cpu")
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        fused_frontend(wi, wq, aa_rows, mask, compute_dtype="f32",
-                       inner="poly", device="cpu")
+    for dtype, inner in (("bf16x2w", "dots"), ("f32x2", "poly"),
+                         ("bf16", "polyroll"), ("f16", None), ("f32", "roll")):
+        with pytest.raises(ValueError):
+            fused_frontend(wi, wq, aa_rows, mask, compute_dtype=dtype,
+                           inner=inner, device="cpu")

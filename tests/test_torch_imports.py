@@ -24,12 +24,14 @@ PORT_MODULES = [
     "btle_tpu_torch.golden",
     "btle_tpu_torch.ll",
     "btle_tpu_torch.ll.hop",
+    "btle_tpu_torch.ll.multifollow",
     "btle_tpu_torch.phy",
     "btle_tpu_torch.phy.scan_kernel",
     "btle_tpu_torch.rx",
     "btle_tpu_torch.rx.decode_kernel",
     "btle_tpu_torch.rx.decoder",
     "btle_tpu_torch.rx.pipeline",
+    "btle_tpu_torch.runtime",
     "btle_tpu_torch.stream",
     "btle_tpu_torch.stream.blocks",
     "btle_tpu_torch.stream.control",
@@ -43,8 +45,10 @@ PORT_MODULES = [
     "btle_tpu_torch.wideband",
     "btle_tpu_torch.wideband.channelizer",
     "btle_tpu_torch.wideband.fused",
+    "btle_tpu_torch.wideband.knobmatrix",
     "btle_tpu_torch.wideband.selftest",
     "btle_tpu_torch.wideband.sniffer",
+    "btle_tpu_torch.wideband.stream",
     "chip_smoke",
 ]
 

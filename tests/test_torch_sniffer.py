@@ -180,8 +180,11 @@ def test_sniffer_selftest_and_control_registers():
     jsn.apply_control_registers(writes)
     assert np.array_equal(sn.aa_rows.numpy(), np.asarray(jsn.aa_rows))
     assert np.array_equal(sn.crc_inits.numpy(), np.asarray(jsn.crc_inits))
-    with pytest.raises(NotImplementedError, match="hop following"):
-        WidebandSniffer(WidebandConfig(follow_connections=True), device="cpu")
+    # connection following is ported: one hop tracker, or a multi-follower
+    assert WidebandSniffer(WidebandConfig(follow_connections=True),
+                           device="cpu").hop_tracker is not None
+    assert WidebandSniffer(WidebandConfig(follow_connections=True, max_follow=3),
+                           device="cpu").multi_follower.max_connections == 3
 
 
 def test_entry_points_without_device_refuse_cpu(monkeypatch):

@@ -28,7 +28,8 @@ torch.set_num_threads(2)
 
 GEOMETRIES = [(640, 1.0), (640, 1.2), (1280, 1.0), (1280, 1.2)]
 TABLE_FNS = ["prototype_filter", "_poly_kernel", "_fused_kernel", "_g_stack",
-             "_g_chunks", "_g_chunks_hilo", "_poly_tables", "_polyx_tables"]
+             "_g_chunks", "_g_chunks_hilo", "_g_chunks_x2", "_poly_tables",
+             "_polyx_tables"]
 
 
 def _flat(x):
@@ -147,11 +148,34 @@ def test_convert_filter_tables_round_trip(num_taps):
             "bf16x2w", (jfused._g_chunks(num_taps),), "cpu")
 
 
-# modules the narrowband slice copies from the JAX package as they are
-# (pure Python / numpy): their code must stay the original's
-COPIED_MODULES = ["ll/hop.py", "stream/blocks.py", "stream/sources.py",
-                  "stream/ndjson.py", "stream/pcap.py", "stream/control.py",
-                  "stream/hci.py"]
+@pytest.mark.parametrize("num_taps", [640, 1280])
+def test_k5_device_tables_equal_jax(num_taps):
+    """The weights K5 runs on, per numerics class, are the JAX package's
+    at that class: _g_chunks rounded to bf16 ("bf16", as jnp.asarray casts
+    it), _g_chunks_x2 ("f32x2") and _g_chunks ("f32" im2col), exactly."""
+    import jax.numpy as jnp
+
+    dev = torch.device("cpu")
+    (bf16,) = tfused._device_tables("bf16", num_taps, 1.0, dev)
+    want = np.asarray(jnp.asarray(jfused._g_chunks(num_taps), jnp.bfloat16),
+                      np.float32)
+    assert bf16.dtype == torch.bfloat16
+    assert np.array_equal(bf16.to(torch.float32).numpy(), want)
+    (x2,) = tfused._device_tables("f32x2", num_taps, 1.0, dev)
+    assert x2.dtype == torch.bfloat16
+    assert np.array_equal(x2.to(torch.float32).numpy(), jfused._g_chunks_x2(num_taps))
+    (f32,) = tfused._device_tables("f32_im2col", num_taps, 1.0, dev)
+    assert f32.dtype == torch.float32
+    assert np.array_equal(f32.numpy(), jfused._g_chunks(num_taps))
+    with pytest.raises(ValueError):
+        convert.filter_tables_from_numpy("f32x2", (jfused._g_chunks(num_taps),), dev)
+
+
+# modules the port copies from the JAX package as they are (pure Python /
+# numpy): their code must stay the original's
+COPIED_MODULES = ["ll/hop.py", "ll/multifollow.py", "stream/blocks.py",
+                  "stream/sources.py", "stream/ndjson.py", "stream/pcap.py",
+                  "stream/control.py", "stream/hci.py"]
 
 
 @pytest.mark.parametrize("module", COPIED_MODULES)
@@ -163,3 +187,11 @@ def test_copied_modules_equal_originals(module):
     trees = [ast.dump(ast.parse((root / pkg / module).read_text()))
              for pkg in ("btle_tpu", "btle_tpu_torch")]
     assert trees[0] == trees[1]
+
+
+def test_runtime_source_byte_equal():
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    assert ((root / "btle_tpu_torch" / "runtime" / "runtime.cpp").read_bytes()
+            == (root / "btle_tpu" / "runtime" / "runtime.cpp").read_bytes())
