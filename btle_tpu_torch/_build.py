@@ -52,12 +52,19 @@ _SIGNATURES = {
     "decode_candidates": "pppppppppiliiip",
     # i, q, aa_rows, aa_mask, bits, hit, rows, N, sps, lag, is_float, stream
     "scan_block": "ppppppiliiip",
+    # s, w, acc, hit, rows, ld_s, n_out, sps, grp, is_int8, n_mask, stream
+    "aa_corr": "ppppilliiiip",
+    # s, x, rows, nbp, grp, sps, k0, stream
+    "shift_stack": "ppiliilp",
+    # f, kc, out, rows, ld_f, n_cols, n, step, stream
+    "shift_fma": "pppilliip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
 # the source of each entry point not named as its source
-_SOURCES = {name: "filterbank_im2col" for name in
-            ("filterbank_im2col_bf16", "filterbank_im2col_f32x2",
-             "filterbank_im2col_f32")}
+_SOURCES = {**{name: "filterbank_im2col" for name in
+               ("filterbank_im2col_bf16", "filterbank_im2col_f32x2",
+                "filterbank_im2col_f32")},
+            "shift_stack": "aa_corr"}
 
 
 def source_of(name: str) -> str:

@@ -6,6 +6,8 @@ subcommands are not ported yet):
 
   decode    sniff one channel from an IQ file/stdin (btle_rx equivalent)
   wideband  40-channel wideband sniff of an 80 Msps capture or live stream
+  tx        synthesize packet descriptors to IQ files / UDP (btle_tx
+            equivalent; the fixed-point modulator runs on the device)
 
 Runs on the CUDA card unless ``--device`` names another device
 (``--device cpu`` runs the plain PyTorch path).
@@ -265,6 +267,128 @@ def _wideband_live(args, runner):
         ring.close()
 
 
+def cmd_tx(args):
+    from ..tx import parse_descriptor_sequence, read_packet_file, synthesize
+    from ..tx.synth import plan_to_stream
+
+    if args.phy in ("coded8", "coded2"):
+        raise SystemExit(f"tx: --phy {args.phy} (LE Coded) is not ported "
+                         "yet (ROADMAP Queue 1 item 13)")
+    if args.file:
+        specs, repeat = read_packet_file(args.file)
+    else:
+        specs, repeat = parse_descriptor_sequence(args.descriptor)
+    if args.repeat is not None:
+        repeat = args.repeat
+    sym_rate = 1
+    if args.phy == "2m":
+        # plan_to_wideband synthesizes per-spec (2M bursts at 40
+        # samples/symbol), so --wideband-out composes 2M scenes too —
+        # decode them back with `wideband --phy 2m`
+        specs = [s.to_2m() for s in specs]
+        sym_rate = 2
+    packets = synthesize(specs, flavor="c", sps=4, device=args.device)
+    for spec, pkt in zip(specs, packets):
+        print(f"# ch{spec.channel} {spec.pkt_type} {len(pkt.i)} samples "
+              f"space {spec.space_ms}ms", file=sys.stderr)
+    if args.dump_dir and not specs:
+        raise SystemExit("tx: --dump-dir needs at least one packet")
+    if args.dump_dir:
+        # per-stage trace files like the reference tool writes on every
+        # parse (info_bit/phy_bit/phy_sample/IQ_sample_for_matlab,
+        # btle_tx.c:4094-4100) — for the last packet of the plan
+        import os
+
+        os.makedirs(args.dump_dir, exist_ok=True)
+        spec, pkt = specs[-1], packets[-1]
+        phy = spec.phy_bits()
+        np.savetxt(os.path.join(args.dump_dir, "info_bit.txt"),
+                   spec.info_bits if spec.raw_phy_bits is None else phy, fmt="%d")
+        np.savetxt(os.path.join(args.dump_dir, "phy_bit.txt"), phy, fmt="%d")
+        inter = np.empty(2 * len(pkt.i), np.int16)
+        inter[0::2] = pkt.i
+        inter[1::2] = pkt.q
+        np.savetxt(os.path.join(args.dump_dir, "phy_sample.txt"), inter, fmt="%d")
+        with open(os.path.join(args.dump_dir, "IQ_sample_for_matlab.txt"), "w") as fh:
+            # exact reference layout (save_phy_sample_for_matlab,
+            # btle_tx.c:4037-4056): "...\n" before every 24-value group,
+            # space-terminated values, trailing newline
+            for k, v in enumerate(inter):
+                if k % 24 == 0:
+                    fh.write("...\n")
+                fh.write(f"{int(v)} ")
+            fh.write("\n")
+        print(f"# trace files in {args.dump_dir}", file=sys.stderr)
+    if args.out:
+        i, q = plan_to_stream(packets, sps=4, num_repeat=max(1, repeat),
+                              sym_rate_msym=sym_rate)
+        if args.out_format == "i8":
+            arr = np.empty(2 * len(i), dtype=np.int8)
+            arr[0::2] = np.clip(i, -128, 127)
+            arr[1::2] = np.clip(q, -128, 127)
+            arr.tofile(args.out)
+        else:
+            iq = np.empty(2 * len(i), dtype=np.float32)
+            iq[0::2] = i / 256.0
+            iq[1::2] = q / 256.0
+            iq.tofile(args.out)
+        print(f"# wrote {args.out} ({len(i)} IQ pairs)", file=sys.stderr)
+    if args.wideband_out:
+        from ..tx.synth import plan_to_wideband
+
+        wi, wq = plan_to_wideband(specs, num_repeat=max(1, repeat),
+                                  noise_std=args.wideband_noise)
+        iq = np.empty(2 * len(wi), dtype=np.float32)
+        iq[0::2] = wi
+        iq[1::2] = wq
+        iq.tofile(args.wideband_out)
+        print(f"# wrote {args.wideband_out} ({len(wi)} IQ pairs @80 Msps, "
+              f"channels {sorted({s.channel for s in specs})}) — decode "
+              f"with: wideband --bin {args.wideband_out}", file=sys.stderr)
+    if args.udp:
+        from ..tx.playback import udp_transmit
+
+        host, _, port = args.udp.rpartition(":")
+        # udp_transmit's sps is samples-per-us (rate + Space pacing):
+        # 4 at LE 1M, 8 for a 2M plan synthesized at 4 samples/symbol
+        sent = udp_transmit(packets, int(port), host or "127.0.0.1",
+                            sps=4 * sym_rate, num_repeat=repeat,
+                            realtime=args.realtime)
+        print(f"# transmitted {sent} IQ pairs to udp://{args.udp}"
+              f"{' (realtime-paced)' if args.realtime else ''}",
+              file=sys.stderr)
+    return 0
+
+
+def _add_tx_args(p):
+    p.add_argument("descriptor", nargs="*", help="packet descriptors (chan-TYPE-...)")
+    p.add_argument("--file", default=None, help="packets.txt descriptor file")
+    p.add_argument("--out", default=None, help="output IQ file")
+    p.add_argument("--out-format", default="f32", choices=["i8", "f32"])
+    p.add_argument("--repeat", type=int, default=None)
+    p.add_argument("--phy", default="1m",
+                   choices=["1m", "2m", "coded8", "coded2"],
+                   help="frame the plan for this LE PHY (2m = BLE 5 LE "
+                        "2M: 16-bit preamble; the output is then an "
+                        "8 Msps stream; coded8/coded2 not ported yet)")
+    p.add_argument("--dump-dir", default=None,
+                   help="write reference-style per-stage trace files")
+    p.add_argument("--wideband-out", default=None, metavar="FILE",
+                   help="compose the plan into ONE 80 Msps f32 capture with "
+                        "each packet on its descriptor's channel carrier "
+                        "(the wideband sniffer's input format)")
+    p.add_argument("--wideband-noise", type=float, default=0.0,
+                   help="AWGN std dev (int8 units) added to --wideband-out")
+    p.add_argument("--udp", default=None, metavar="HOST:PORT",
+                   help="play the plan as timed bursts to a UDP receiver "
+                        "(wire format of the runtime's ingest)")
+    p.add_argument("--realtime", action="store_true",
+                   help="pace --udp playback at the 4 Msps air rate")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the modulator (default cuda; cpu "
+                        "runs it on the CPU)")
+
+
 def _add_wideband_args(p):
     p.add_argument("--bin", default=None,
                    help="interleaved-IQ capture file (finite mode)")
@@ -332,6 +456,9 @@ def build_parser():
     p = sub.add_parser("wideband", help="40-channel wideband sniff (80 Msps capture)")
     _add_wideband_args(p)
     p.set_defaults(fn=cmd_wideband)
+    p = sub.add_parser("tx", help="synthesize packets to an IQ file")
+    _add_tx_args(p)
+    p.set_defaults(fn=cmd_tx)
     return ap
 
 

@@ -9,10 +9,6 @@ that class of fault. ``fused_selftest()`` synthesizes a deterministic
 39 — runs it through the configured scan and verifies that every
 injected packet decodes CRC-OK with byte-exact PDU content on its
 channel, and that no other channel decodes a CRC-OK packet.
-
-The scene is built with the port's golden-model and compose_wideband
-copies (the descriptor / synth TX path is not ported yet); its PDUs,
-framing, placement and noise are those of the JAX package's scene.
 """
 
 from __future__ import annotations
@@ -26,40 +22,43 @@ class WidebandSelfTestError(RuntimeError):
 
 SELFTEST_CHANNELS = (37, 17, 39)
 _N_WB = 280_000  # 3.5 ms of 80 Msps air
-_WB_FS = 80      # wideband samples per microsecond
 
 
 def _scene(phy: str = "1m"):
-    """Deterministic packets -> (wi, wq, expected {channel: pdu bytes}):
-    an ADV_NONCONN_IND (AdvA + AdvData) on each advertising channel and an
-    LL data PDU (LLID 1) on data channels, all on the advertising access
-    address and CRC init, 80k wideband samples apart."""
-    from ..golden.model import assemble_phy_bits, gfsk_modulate_float
+    """Deterministic packets -> (wi, wq, expected {channel: pdu bytes}).
+
+    Built through the shipped TX path — descriptor parse ->
+    tx.synth.scene_to_wideband (the same composition `tx --wideband-out`
+    runs) — so the gate on the card validates the code users run, not a
+    private synthesis twin. Expected PDU bytes are derived from the
+    parsed specs, keeping the known answer self-consistent.
+    """
     from ..spec import bits as B
-    from .channelizer import compose_wideband
+    from ..tx import parse_descriptor_sequence
+    from ..tx.synth import scene_to_wideband
 
     rng = np.random.default_rng(0xB7E)
-    sps = _WB_FS // (2 if phy == "2m" else 1)
-    placements, expected = [], {}
+    descs = []
     for k, ch in enumerate(SELFTEST_CHANNELS):
         payload = rng.integers(0, 256, 10 + 2 * k, dtype=np.uint8)
         if ch in (37, 38, 39):
-            # ADV_NONCONN_IND, TxAdd 0, RxAdd 0; AdvA goes on air LSB first
-            body = np.concatenate([payload[:6][::-1], payload[6:]])
-            pdu = np.concatenate([[0x02, len(body)], body]).astype(np.uint8)
+            descs.append(
+                f"{ch}-ADV_NONCONN_IND-TxAdd-0-RxAdd-0"
+                f"-AdvA-{bytes(payload[:6]).hex()}"
+                f"-AdvData-{bytes(payload[6:]).hex()}-Space-1")
         else:
-            # LL data PDU: LLID 1, NESN 0, SN 0, MD 0
-            pdu = np.concatenate([[0x01, len(payload)], payload]).astype(np.uint8)
-        phy_bits = assemble_phy_bits(B.bytes_to_bits(pdu), ch, phy=phy)
-        ci, cq = gfsk_modulate_float(phy_bits, sps)
-        placements.append((ch, 12_000 + 80_000 * k, ci.astype(np.float32),
-                           cq.astype(np.float32)))
-        expected[ch] = pdu
-    wi, wq = compose_wideband(placements, _N_WB)
+            descs.append(
+                f"{ch}-LL_DATA-AA-8E89BED6-LLID-1-NESN-0-SN-0-MD-0"
+                f"-DATA-{bytes(payload).hex()}-CRCInit-555555-Space-1")
+    specs, _ = parse_descriptor_sequence(descs)
+    if phy == "2m":
+        specs = [s.to_2m() for s in specs]
+    placed = [(s, 12_000 + 80_000 * k) for k, s in enumerate(specs)]
+    expected = {s.channel: np.asarray(
+        B.bits_to_bytes(s.info_bits[s.pdu_start:]), np.uint8)
+        for s in specs}
     # light deterministic noise so bit decisions are not degenerate ties
-    noise = np.random.default_rng(0xB7E)
-    wi = wi + noise.normal(0.0, 0.01, _N_WB).astype(np.float32)
-    wq = wq + noise.normal(0.0, 0.01, _N_WB).astype(np.float32)
+    wi, wq = scene_to_wideband(placed, _N_WB, noise_std=0.01, seed=0xB7E)
     return wi, wq, expected
 
 

@@ -52,6 +52,23 @@ JSON line per phase:
      (pipeline 2) over the native ring preloaded with the scene: the same
      packets as the file run, its real-time factor, its host/device split
      and a profile;
+  6c. tx: ``python -m btle_tpu_torch.cli tx`` in child processes on the
+     descriptors of examples/packets/*.txt (Space 1 ms) plus one packet
+     on each of ten channels across the band, --out f32 with
+     --wideband-out, then --out i8: the files equal the library's
+     (plan_to_stream / plan_to_wideband); the 4 Msps stream through the
+     narrowband Sniffer once per (channel, access address, CRC init) and
+     through the decode CLI on channel 37, the 80 Msps capture through
+     WidebandSniffer(fused=True) in "bf16x2w" and "f32" once per (access
+     address, CRC init): every packet CRC-OK and byte-exact on its
+     channel, no other; the modulator's time per packet;
+  6d. probes: aa_corr and shift_stack against their twins exactly at
+     several (sps, n_out, grp), shift_fma at the three (R, N, STEP) of K10
+     within 1e-5 of max |out|; then each TPU probe's Hopper counterpart
+     (btle_tpu_torch.tools: K8 dev_aagrp_bisect, K9 dev_aagrp_repro, K10
+     dev_rollscale per R, K11 dev_roll_experiment in f32 and bf16) with
+     few trials: every exact variant an exact match, every checksum pair
+     MATCH, the launches of each probe's kernels counted;
   7. timing: wideband_scan_fused over 8 distinct device-resident noise
      blocks (as bench.py), median Msps per CLI mode, the clocks right
      after; per-kernel time, its
@@ -59,8 +76,11 @@ JSON line per phase:
      convolution computing the same y as yardstick; the narrowband
      real-time factor (air seconds per wall second, median of 3 runs)
      at both block sizes; then a torch.profiler trace of 8 scan steps
-     per mode: device time by kernel and the device's idle share;
-  8. the {"kernels": [...]} summary.
+     per mode: device time by kernel and the device's idle share; each
+     probe kernel at its probe's shape (K8-K11 on aa_corr, shift_stack,
+     shift_fma, K2, K3 and K5);
+  8. the {"kernels": [...]} summary, K1-K11 (``k`` names the PERF.md
+     rows each entry carries).
 
 The last two lines are the card's name and power limit as nvidia-smi
 reports them, then {"ok": true, "device": {...}}. Without a CUDA device
@@ -79,6 +99,11 @@ from pathlib import Path
 
 import numpy as np
 
+# the card's peak rates (integer operations counted at the FP32 rate) and
+# the least time for a function's bytes and operations, shared with the
+# probes
+from btle_tpu_torch.tools._measure import BF16_FLOPS, FP32_FLOPS, bound_ms
+
 ROOT = Path(__file__).resolve().parent
 SCAN_LEN = 131072
 MAX_CANDIDATES = 16
@@ -89,9 +114,6 @@ FILTERBANK_MODES = (("bf16x2w", None, "filterbank_bf16x2w"),
                     ("bf16", None, "filterbank_im2col_bf16"),
                     ("f32x2", None, "filterbank_im2col_f32x2"),
                     ("f32", "im2col", "filterbank_im2col_f32"))
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-BF16_FLOPS = 989e12             # dense tensor-core bf16
-FP32_FLOPS = 67e12              # CUDA-core fp32 (also counted for int ops)
 
 # narrowband scene: 1 s of air at 4 Msps on channel 37, int16 at a
 # realistic receiver amplitude (full scale 32767) plus Gaussian noise
@@ -121,6 +143,14 @@ WB_NOISE_STD = 2.0
 WB_CONNS = ((0x60850A1B, "a77b22", 7, 16, 37, 1000),    # AA, CRC, hop,
             (0x50A1B2C4, "55aa11", 11, 20, 38, 3500))   # interval, channel, t_us
 CLI_MODES = (("bf16", "i8"), ("bf16x2w", "f32"), ("f32", "f32"))
+
+
+# the PERF.md kernel-table rows each kernel of the main paths carries: K6
+# (the Mosaic inner variants) is mapped onto K1, K3 and K5
+TPU_KERNEL_OF = {"filterbank_bf16x2w": ["K1", "K6"], "filterbank_polyx_f32": ["K3", "K6"],
+                 "filterbank_im2col_bf16": ["K5", "K6"], "filterbank_im2col_f32x2": ["K5"],
+                 "filterbank_im2col_f32": ["K5", "K6"], "demod_tail": ["K2"],
+                 "decode_candidates": ["K4"], "scan_block": ["K7"]}
 
 
 def log(obj) -> None:
@@ -855,6 +885,276 @@ def run_wideband_cli(dev, kernels) -> tuple[dict, dict]:
     return report, launches
 
 
+# --------------------------------------------------------------------------
+# TX: the tx CLI on the card, looped back through decode and wideband
+# --------------------------------------------------------------------------
+
+
+# one packet on each of several channels across the band, on the
+# advertising access address (the wideband sniffer's default keys)
+TX_BAND_CHANNELS = (0, 5, 10, 16, 22, 28, 33, 36, 38, 39)
+TX_WIDEBAND_NOISE = 2.0
+
+
+def tx_descriptors(seed: int = 44) -> list:
+    """Every descriptor line of examples/packets/*.txt (its Space set to
+    1 ms, so the 80 Msps file stays small) and one packet per channel of
+    TX_BAND_CHANNELS: ADV_NONCONN_IND on 38/39, LL data (LLID 1) on the
+    advertising access address elsewhere."""
+    import re
+
+    out = []
+    for path in sorted((ROOT / "examples" / "packets").glob("*.txt")):
+        for line in path.read_text().splitlines():
+            line = line.strip()
+            if not line or line.startswith("#") or re.fullmatch(r"r-?\d+", line):
+                continue
+            spaced = re.sub(r"-Space-\d+", "-Space-1", line, flags=re.IGNORECASE)
+            out.append(spaced if spaced != line else line + "-Space-1")
+    rng = np.random.default_rng(seed)
+    for ch in TX_BAND_CHANNELS:
+        data = bytes(rng.integers(0, 256, int(rng.integers(4, 26)), dtype=np.uint8)).hex()
+        if ch in (37, 38, 39):
+            adva = bytes(rng.integers(0, 256, 6, dtype=np.uint8)).hex()
+            out.append(f"{ch}-ADV_NONCONN_IND-TxAdd-0-RxAdd-0-AdvA-{adva}"
+                       f"-AdvData-{data}-Space-1")
+        else:
+            out.append(f"{ch}-LL_DATA-AA-8E89BED6-LLID-1-NESN-0-SN-0-MD-0"
+                       f"-DATA-{data}-CRCInit-555555-Space-1")
+    return out
+
+
+def spec_keys(spec):
+    """(on-air access address hex, its display value, CRC init hex, PDU
+    bytes) of a parsed packet."""
+    from btle_tpu_torch.spec import bits as B
+
+    aa = bytes(B.bits_to_bytes(spec.info_bits[spec.pdu_start - 32: spec.pdu_start]))
+    pdu = bytes(B.bits_to_bytes(spec.info_bits[spec.pdu_start:]))
+    return aa.hex(), int.from_bytes(aa, "little"), spec.crc_init_hex, pdu
+
+
+def run_tx(dev, kernels) -> dict:
+    """The "tx" phase: the tx CLI in child processes on the card (--out
+    f32 with --wideband-out, then --out i8), its files equal to the
+    library's; the 4 Msps stream through the narrowband Sniffer (the
+    decode CLI's engine) once per (channel, access address, CRC init) of
+    the plan and through the decode CLI on channel 37; the 80 Msps
+    capture through WidebandSniffer(fused=True) in "bf16x2w" and "f32",
+    once per (access address, CRC init). Every packet must come back
+    CRC-OK and byte-exact on its channel, with no other CRC-OK packet;
+    and the modulator's time per packet on the card."""
+    import torch
+
+    from btle_tpu_torch.phy.modulator import modulate_batch
+    from btle_tpu_torch.stream import PcapWriter, Sniffer, SnifferConfig, iq_file_source
+    from btle_tpu_torch.tx import parse_descriptor_sequence, synthesize
+    from btle_tpu_torch.tx.synth import plan_to_stream, plan_to_wideband
+    from btle_tpu_torch.wideband import WidebandConfig, WidebandSniffer
+
+    descs = tx_descriptors()
+    specs, _ = parse_descriptor_sequence(descs)
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = {k: out_dir / f"tx.{k}" for k in ("f32", "i8", "wb")}
+    report = {"packets": len(specs), "channels": sorted({s.channel for s in specs})}
+    try:
+        # the CLI in child processes on the card
+        cli_s = []
+        for extra in (["--out", str(files["f32"]), "--wideband-out", str(files["wb"]),
+                       "--wideband-noise", str(TX_WIDEBAND_NOISE)],
+                      ["--out", str(files["i8"]), "--out-format", "i8"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "btle_tpu_torch.cli", "tx",
+                                   *descs, *extra], cwd=ROOT, capture_output=True,
+                                  text=True, timeout=300)
+            cli_s.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise AssertionError(f"tx CLI: rc {proc.returncode}, stderr "
+                                     f"{proc.stderr[-2000:]}")
+        report["cli_s"] = cli_s
+        # the same files from the library
+        packets = synthesize(specs, flavor="c", sps=4, device=dev)
+        i, q = plan_to_stream(packets, sps=4)
+        want = {"f32": np.empty(2 * len(i), np.float32), "i8": np.empty(2 * len(i), np.int8)}
+        want["f32"][0::2], want["f32"][1::2] = i / 256.0, q / 256.0
+        want["i8"][0::2], want["i8"][1::2] = np.clip(i, -128, 127), np.clip(q, -128, 127)
+        wi, wq = plan_to_wideband(specs, noise_std=TX_WIDEBAND_NOISE)
+        want["wb"] = np.empty(2 * len(wi), np.float32)
+        want["wb"][0::2], want["wb"][1::2] = wi, wq
+        for k, path in files.items():
+            if path.read_bytes() != want[k].tobytes():
+                raise AssertionError(f"tx CLI file {path.name} differs from the library's")
+        report["files_equal_to_library"] = True
+        report["samples"] = {"stream": len(i), "wideband": len(wi)}
+
+        # every (channel, AA, CRC) of the plan through the narrowband Sniffer
+        groups = {}
+        for s in specs:
+            aa_hex, aa, crc, pdu = spec_keys(s)
+            groups.setdefault((s.channel, aa, crc), []).append(pdu)
+        nb = {}
+        zero_launches(kernels)
+        for fmt in ("f32", "i8"):
+            ok = 0
+            for (ch, aa, crc), pdus in groups.items():
+                pc = io.BytesIO()
+                sn = Sniffer(SnifferConfig(channel=ch, access_addr=aa, crc_init=int(crc, 16),
+                                           sps=4), pcap=PcapWriter(pc), quiet_text=True,
+                             device=dev)
+                events = sn.run(iq_file_source(str(files[fmt]), fmt))
+                recs = pcap_records(pc.getvalue())
+                got = sorted(r[2] for e, r in zip(events, recs) if e.crc_ok)
+                if got != sorted(pdus) or any(r[0] != ch for r in recs):
+                    raise AssertionError(f"tx -> decode ({fmt}, channel {ch}, AA "
+                                         f"{aa:08x}): got {len(got)} CRC-OK packets "
+                                         f"for {len(pdus)}")
+                ok += len(got)
+            nb[fmt] = {"groups": len(groups), "crc_ok": ok, "missing": 0, "extra": 0}
+        nb["launches"] = read_launches(kernels)
+        if nb["launches"]["scan_block"] <= 0 or nb["launches"]["decode_candidates"] <= 0:
+            raise AssertionError("tx -> decode never launched the narrowband kernels")
+        # the decode CLI on channel 37 (the advertising group), both formats
+        for fmt in ("f32", "i8"):
+            proc = subprocess.run(
+                [sys.executable, "-m", "btle_tpu_torch.cli", "decode", "--bin",
+                 str(files[fmt]), "--format", fmt, "--channel", "37", "--sps", "4",
+                 "--json"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+            pkts = [o for o in ndjson_without_ts(proc.stdout) if o["t"] == "pkt"] \
+                if proc.returncode == 0 else []
+            n_ok = sum(bool(o.get("crc_ok")) for o in pkts)
+            want_ok = len(groups[(37, ADV_AA, "555555")])
+            nb[f"cli_{fmt}"] = {"rc": proc.returncode, "crc_ok": n_ok}
+            if proc.returncode != 0 or n_ok != want_ok:
+                raise AssertionError(f"decode CLI on the tx {fmt} file: rc "
+                                     f"{proc.returncode}, {n_ok} CRC-OK for {want_ok}; "
+                                     f"stderr {proc.stderr[-2000:]}")
+        report["decode"] = nb
+
+        # every (AA, CRC) of the plan through the fused wideband sniffer
+        data = np.fromfile(files["wb"], np.float32)
+        fi, fq = data[0::2], data[1::2]
+        wb_groups = {}
+        for s in specs:
+            aa_hex, aa, crc, pdu = spec_keys(s)
+            wb_groups.setdefault((aa_hex, aa, crc), []).append((s.channel, aa, pdu))
+        wb = {}
+        for mode in ("bf16x2w", "f32"):
+            zero_launches(kernels)
+            ok = 0
+            for (aa_hex, aa, crc), want_pkts in wb_groups.items():
+                sn = WidebandSniffer(WidebandConfig(access_address_hex=aa_hex,
+                                                    crc_init_hex=crc, fused=True,
+                                                    fused_dtype=mode), device=dev)
+                ok += check_wideband_packets(f"tx -> wideband ({mode}, AA {aa:08x})",
+                                             sn.run(fi, fq), want_pkts)["crc_ok"]
+            torch.cuda.synchronize()
+            wb[mode] = {"groups": len(wb_groups), "crc_ok": ok, "missing": 0,
+                        "extra": 0, "launches": read_launches(kernels)}
+        report["wideband"] = wb
+    finally:
+        for path in files.values():
+            path.unlink(missing_ok=True)
+
+    # the modulator on the card: one batched call over the plan
+    phy = [s.phy_bits() for s in specs]
+    batch = np.zeros((len(phy), max(len(b) for b in phy)), np.int8)
+    for k, b in enumerate(phy):
+        batch[k, :len(b)] = b
+    bits = torch.as_tensor(batch, device=dev)
+    ms = cuda_time_ms(lambda: modulate_batch(bits, "c", 4), 20)
+    report["modulator"] = {"flavor": "c", "packets": len(phy), "bits": batch.shape[1],
+                           "ms_per_call": ms, "ms_per_packet": ms / len(phy)}
+    log({"phase": "tx", **report})
+    return report
+
+
+# --------------------------------------------------------------------------
+# probes: the TPU development probes K8-K11 as Hopper probes
+# --------------------------------------------------------------------------
+
+
+def check_probe_kernels(dev) -> dict:
+    """Each probe kernel against its twin on the card: aa_corr (float
+    and int8 lattices) and shift_stack exactly at several (sps, n_out,
+    grp), shift_fma at the three (R, N, STEP) of K10 at full size within
+    1e-5 of max |out| (the same products summed in another order)."""
+    import torch
+
+    from btle_tpu_torch.tools import _kernels as K
+    from btle_tpu_torch.tools import dev_rollscale
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    report = {}
+    for sps, n_out, grp in ((4, 2048, 8), (4, 131072, 1), (2, 5000, 4), (8, 3001, 16)):
+        cols = n_out + 31 * sps + 3
+        lat = torch.randint(0, 2, (40, cols), generator=gen, device=dev)
+        w = torch.randint(-1, 2, (40, 32), generator=gen, device=dev).to(torch.float32)
+        for s in (lat.to(torch.int8), (lat * 2 - 1).to(torch.float32)):
+            got = K.aa_corr(s, w, sps, n_out, grp=grp, n_mask=int(w.abs()[0].sum()))
+            want = K.aa_corr_reference(s, w, sps, n_out, n_mask=int(w.abs()[0].sum()))
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"aa_corr ({s.dtype}, sps {sps}, grp {grp}) "
+                                     "disagrees with its twin")
+        x = (lat * 2 - 1).to(torch.float32)
+        for k0 in (0, sps * grp):
+            if not torch.equal(K.shift_stack(x, grp, sps, k0),
+                               K.shift_stack_reference(x, grp, sps, k0)):
+                raise AssertionError(f"shift_stack (grp {grp}, k0 {k0}) disagrees")
+    report["aa_corr"] = {"max_abs_err": 0.0, "ok": True}
+    report["shift_stack"] = {"max_abs_err": 0.0, "ok": True}
+    errs = {}
+    for rows, n, step, grp in dev_rollscale.CONFIGS[:3]:
+        kc, frames = dev_rollscale.make_inputs(rows, n, step, dev_rollscale.N_TILES, dev)
+        n_cols = dev_rollscale.N_TILES * dev_rollscale.T
+        got = K.shift_fma(frames[0], kc, n_cols, step, grp)
+        want = K.shift_fma_reference(frames[0], kc, n_cols, step, grp)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        errs[f"R{rows}"] = {"max_abs_err": err, "max_abs_out": scale}
+        if not err <= dev_rollscale.TOLERANCE * scale:
+            raise AssertionError(f"shift_fma (R {rows}) disagrees with its twin: {err}")
+    report["shift_fma"] = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                           "ok": True, **errs}
+    log({"phase": "probe_kernels_vs_twins", **report})
+    return report
+
+
+PROBE_TRIALS = {"iters": 16, "trials": 3}   # full trials from the probes' CLIs
+
+
+def run_probes(dev, kernels) -> dict:
+    """The "probes" phase: each probe's run() on the card with the launch
+    counts zeroed just before and read just after; every exact variant
+    must be an exact match and every checksum pair MATCH. Returns
+    {probe: (result, launches)}."""
+    from btle_tpu_torch.tools import (dev_aagrp_bisect, dev_aagrp_repro,
+                                      dev_roll_experiment, dev_rollscale)
+
+    runs = {
+        "K8": lambda: dev_aagrp_bisect.run(dev),
+        "K9": lambda: dev_aagrp_repro.run(dev),
+        **{f"K10 R{c[0]}": (lambda c=c: dev_rollscale.run(dev, configs=[c], **PROBE_TRIALS))
+           for c in dev_rollscale.CONFIGS[:3]},
+        "K11 f32": lambda: dev_roll_experiment.run(dev, dtype="f32", **PROBE_TRIALS),
+        "K11 bf16": lambda: dev_roll_experiment.run(dev, which="im2col", dtype="bf16",
+                                                    **PROBE_TRIALS),
+    }
+    out = {}
+    for name, fn in runs.items():
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        res = fn()
+        seconds = time.perf_counter() - t0
+        launches = {k: n for k, n in read_launches(kernels).items() if n}
+        log({"phase": "probe", "probe": name, "seconds": seconds,
+             "failures": res["failures"], "launches": launches,
+             **{k: res[k] for k in ("variants", "configs", "pairs") if k in res}})
+        if res["failures"]:
+            raise AssertionError(f"probe {name}: {res['failures']} failures")
+        out[name] = (res, launches)
+    return out
+
+
 def check_narrowband_kernels(dev, nb_block, wb_operands) -> dict:
     """Phase 2, narrowband part: the scan kernel against its twin (exact)
     on the int16 narrowband block at sps 4 / lag 1, on it with an all-zero
@@ -947,7 +1247,7 @@ def time_scan_kernel(args) -> dict:
     n_bits, n_hit = n - lag, n - lag - 31 * sps
     return {**kernel_times(SCAN_BLOCK, lambda: scan_block_kernel(*args),
                            lambda: scan_block_reference(*args), 50),
-            **dict(zip(("bound_ms", "bound_by"), bound(
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(
                 2 * n * i.element_size() + 64 + n_bits + n_hit,
                 4 * n_bits + (2 * 32 + 3) * n_hit, FP32_FLOPS)))}
 
@@ -1063,11 +1363,6 @@ def profile_narrowband(dev, i, q) -> dict:
         -(-n // scan_len)) for scan_len in (SCAN_LEN, NB_LIVE_SCAN_LEN)}
 
 
-def bound(nbytes: float, ops: float, rate: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
 def kernel_device_ms(fn, kernel_name: str, reps: int, tries: int = 3):
     """Device time per launch of the CUDA kernel named ``kernel_name``, from
     torch.profiler over ``reps`` calls of ``fn`` — the kernel alone,
@@ -1127,7 +1422,7 @@ def time_kernels(operands, decode_args, library) -> dict:
                        lambda: fused.filterbank_bf16x2w(*fb),
                        lambda: fused.filterbank_bf16x2w_reference(*fb), 10,
                        library=library["filterbank_bf16x2w"]),
-        **dict(zip(("bound_ms", "bound_by"), bound(
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
             frames.numel() * 2 + gk.numel() * 2 + 80 * ky * 4,
             2 * rows * 40 * width * ky, BF16_FLOPS))),
     }
@@ -1142,7 +1437,7 @@ def time_kernels(operands, decode_args, library) -> dict:
                            lambda fb=fb: fused.filterbank_im2col_reference(*fb), 10,
                            library=library[name]),
             # f32x2: the four bf16 products per term the function needs
-            **dict(zip(("bound_ms", "bound_by"), bound(
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(
                 frames.numel() * frames.element_size()
                 + gk.numel() * gk.element_size() + 80 * ky * 4,
                 products * 2 * 80 * 40 * width * ky, rate))),
@@ -1155,7 +1450,7 @@ def time_kernels(operands, decode_args, library) -> dict:
                        lambda: fused.filterbank_polyx_f32(*fb),
                        lambda: fused.filterbank_polyx_f32_reference(*fb), 10,
                        library=library["filterbank_polyx_f32"]),
-        **dict(zip(("bound_ms", "bound_by"), bound(
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
             (f4.numel() + kcoefx.numel() + w4x.numel() + 80 * ky) * 4,
             2 * rows * n_slices * ky + 2 * 80 * rows * ky, FP32_FLOPS))),
     }
@@ -1166,7 +1461,7 @@ def time_kernels(operands, decode_args, library) -> dict:
                        lambda: fused.demod_tail_reference(y, *tail), 20),
         # decisions 3 flops per bit; |y_i|+|y_q|, 7 tree adds and a scale
         # per RSSI position; 2 integer ops per AA tap
-        **dict(zip(("bound_ms", "bound_by"), bound(
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
             y.numel() * 4 + 40 * 33 + 40 * n_bits + 40 * n_hit * 5,
             40 * (3 * n_bits + (10 + 64) * n_hit), FP32_FLOPS))),
     }
@@ -1179,11 +1474,134 @@ def time_kernels(operands, decode_args, library) -> dict:
                                                            adv, 4), 50),
         # window bits read + tables + outputs; per candidate 336 xor/or and
         # 42 x 8 three-op CRC steps
-        **dict(zip(("bound_ms", "bound_by"), bound(
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
             m * c * 336 + m * c * 4 + m * 336 + m * 5 + m * c * (42 * 4 + 6),
             m * c * (2 * 336 + 3 * 336), FP32_FLOPS))),
     }
     return out
+
+
+def probe_kernel_entries(dev, probes) -> list:
+    """One entry of the kernels line per TPU probe kernel (K8-K11), each
+    at the shape its probe gives it: the Hopper kernel it runs on, its
+    device time, its twin's (plain) time, the library yardstick's where
+    one PyTorch call computes the same function, its bound, its max
+    |kernel - twin| there, and its launches in that probe's run."""
+    import torch
+
+    from btle_tpu_torch.tools import _kernels as K
+    from btle_tpu_torch.tools import (dev_aagrp_bisect, dev_aagrp_repro,
+                                      dev_roll_experiment, dev_rollscale)
+    from btle_tpu_torch.wideband import fused
+    from btle_tpu_torch.wideband.channelizer import true_fp32
+
+    entries = []
+
+    def entry(k, label, kernel, replaces, probe, fn, twin, reps, nbytes, ops,
+              rate=FP32_FLOPS, library=None):
+        got, want = fn(), twin()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        err = max(float((g.to(torch.float32) - w.to(torch.float32)).abs().max())
+                  for g, w in zip(got, want))
+        entries.append({
+            "k": [k], "name": f"{kernel.name} ({label})", "route": "cuda",
+            "source": kernel.source, "replaces": replaces,
+            "launches": probes[probe][1].get(kernel.name, 0), "max_abs_err": err,
+            **kernel_times(kernel, fn, twin, reps, library),
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, ops, rate)))})
+
+    def grouped_conv(s, w, sps, n_out):
+        def call():
+            with true_fp32():
+                return torch.nn.functional.conv1d(s[None], w[:, None, :], groups=w.shape[0],
+                                                  dilation=sps)[0, :, :n_out]
+        return call
+
+    # K8: K2 on the GFSK lattices, K3 at 80 rows, the AA stage on decisions
+    aa_rows, tsign, y_i, y_q = dev_aagrp_bisect.make_inputs()
+    rows = torch.as_tensor(aa_rows.astype(np.int8), device=dev)
+    mask = torch.ones(32, dtype=torch.int8, device=dev)
+    signs = torch.as_tensor(tsign, device=dev)
+    y = torch.as_tensor(np.concatenate([y_i, y_q]), device=dev)
+    n_hit, nb = dev_aagrp_bisect.T, dev_aagrp_bisect.NB
+    tail = (rows, mask, 4, 4, nb, n_hit)
+    entry("K8", "tail", fused.DEMOD_TAIL, "tools/dev_aagrp_bisect.py:118", "K8",
+          lambda: fused.demod_tail(y, *tail), lambda: fused.demod_tail_reference(y, *tail),
+          50, y.numel() * 4 + 40 * 33 + 40 * nb + 40 * n_hit * 5,
+          40 * (3 * nb + 74 * n_hit))
+    frames = torch.as_tensor(dev_aagrp_bisect.dma_frames(y_i, y_q), device=dev)
+    ones = torch.ones((80, 1), device=dev)
+    eye = torch.eye(80, device=dev)
+    ky = frames.shape[1]
+    mm = (frames, ones, eye, ky, 1)
+
+    def matmul():
+        with true_fp32():
+            return eye @ frames
+    entry("K8", "dma-mm", fused.FILTERBANK_POLYX_F32, "tools/dev_aagrp_bisect.py:184",
+          "K8", lambda: fused.filterbank_polyx_f32(*mm),
+          lambda: fused.filterbank_polyx_f32_reference(*mm), 50,
+          (frames.numel() + 80 + 80 * 80 + 80 * ky) * 4, 2 * 80 * ky + 2 * 80 * 80 * ky,
+          library=matmul)
+    d = (y_i[:, :nb] * y_q[:, 4: nb + 4] - y_i[:, 4: nb + 4] * y_q[:, :nb]) > 0
+    dec = torch.as_tensor(d.astype(np.int8), device=dev)
+    entry("K8", "aa-only", K.AA_CORR, "tools/dev_aagrp_bisect.py:265", "K8",
+          lambda: K.aa_corr(dec, signs, 4, n_hit), lambda: K.aa_corr_reference(dec, signs, 4, n_hit),
+          50, dec.numel() + 40 * 32 * 4 + 40 * n_hit * 5, 2 * 40 * 32 * n_hit)
+
+    # K9: the correlation and the stack
+    s9, w4, _ = dev_aagrp_repro.make_inputs(8)
+    s9 = torch.as_tensor(s9, device=dev)
+    w9 = torch.as_tensor(dev_aagrp_repro.signs_of_w4(w4, 8), device=dev)
+    t9 = dev_aagrp_repro.T
+    entry("K9", "corr", K.AA_CORR, "tools/dev_aagrp_repro.py:118", "K9",
+          lambda: K.aa_corr(s9, w9, 4, t9), lambda: K.aa_corr_reference(s9, w9, 4, t9), 50,
+          s9.numel() * 4 + 40 * 32 * 4 + 40 * t9 * 5, 2 * 40 * 32 * t9,
+          library=grouped_conv(s9, w9, 4, t9))
+    entry("K9", "roll", K.SHIFT_STACK, "tools/dev_aagrp_repro.py:118", "K9",
+          lambda: K.shift_stack(s9, 8, 4), lambda: K.shift_stack_reference(s9, 8, 4), 50,
+          s9.numel() * 4 * (1 + 8), 0)
+
+    # K10: the three stacking factors at one 131072-sample block
+    n_cols = dev_rollscale.N_TILES * dev_rollscale.T
+    for r, n, step, grp in dev_rollscale.CONFIGS[:3]:
+        kc, fr = dev_rollscale.make_inputs(r, n, step, dev_rollscale.N_TILES, dev)
+        f0 = fr[0]
+        entry("K10", f"R{r}-N{n}", K.SHIFT_FMA, "tools/dev_rollscale.py:75", f"K10 R{r}",
+              lambda f0=f0, kc=kc, step=step, grp=grp: K.shift_fma(f0, kc, n_cols, step, grp),
+              lambda f0=f0, kc=kc, step=step, grp=grp: K.shift_fma_reference(
+                  f0, kc, n_cols, step, grp), 20,
+              4 * (f0.numel() + kc.numel() + 40 * n_cols), 2 * r * n * n_cols,
+              library=lambda f0=f0, kc=kc, step=step: dev_rollscale.library_call(
+                  f0, kc, n_cols, step))
+        del kc, fr, f0
+
+    # K11: K5 on the tool's frames and G (f32 and bf16), the AA stage
+    g, frames_np, tsign11, lat = dev_roll_experiment.make_inputs()
+    for dtype, kind, rate, probe in ((torch.float32, "f32_im2col", FP32_FLOPS, "K11 f32"),
+                                     (torch.bfloat16, "bf16", BF16_FLOPS, "K11 bf16")):
+        f11 = torch.as_tensor(frames_np[0], device=dev).to(dtype)
+        gk = torch.as_tensor(g, device=dev).to(dtype)
+        w11 = dev_roll_experiment.im2col_weights(gk)
+        args = (f11, gk, 65, n_cols, kind)
+
+        def conv(f11=f11, w11=w11):
+            with true_fp32():
+                return torch.nn.functional.conv1d(f11[None], w11)[0, :, :n_cols]
+        entry("K11", f"im2col {kind}", fused.FILTERBANK_IM2COL[kind],
+              "tools/dev_roll_experiment.py:109", probe,
+              lambda args=args: fused.filterbank_im2col(*args),
+              lambda args=args: fused.filterbank_im2col_reference(*args), 10,
+              f11.numel() * f11.element_size() + gk.numel() * gk.element_size()
+              + 80 * n_cols * 4, 2 * 80 * 40 * 65 * n_cols, rate, library=conv)
+    l11 = torch.as_tensor(lat[0], device=dev)
+    w11 = torch.as_tensor(tsign11, device=dev)
+    entry("K11", "aa", K.AA_CORR, "tools/dev_roll_experiment.py:197", "K11 f32",
+          lambda: K.aa_corr(l11, w11, 4, n_cols), lambda: K.aa_corr_reference(l11, w11, 4, n_cols),
+          20, l11.numel() * 4 + 40 * 32 * 4 + 40 * n_cols * 5, 2 * 40 * 32 * n_cols,
+          library=grouped_conv(l11, w11, 4, n_cols))
+    return entries
 
 
 def main() -> int:
@@ -1192,6 +1610,7 @@ def main() -> int:
     from btle_tpu_torch import _build
     from btle_tpu_torch.phy import scan_kernel
     from btle_tpu_torch.rx import decode_kernel
+    from btle_tpu_torch.tools import _kernels as probe_kernels
     from btle_tpu_torch.wideband import fused
 
     if not torch.cuda.is_available():
@@ -1208,9 +1627,10 @@ def main() -> int:
          "name": torch.cuda.get_device_name(0),
          "count": torch.cuda.device_count()})
 
-    kernels = [fused.FILTERBANK_BF16X2W, fused.FILTERBANK_POLYX_F32,
-               *fused.FILTERBANK_IM2COL.values(), fused.DEMOD_TAIL,
-               decode_kernel.DECODE_CANDIDATES, scan_kernel.SCAN_BLOCK]
+    path_kernels = [fused.FILTERBANK_BF16X2W, fused.FILTERBANK_POLYX_F32,
+                    *fused.FILTERBANK_IM2COL.values(), fused.DEMOD_TAIL,
+                    decode_kernel.DECODE_CANDIDATES, scan_kernel.SCAN_BLOCK]
+    kernels = [*path_kernels, *probe_kernels.KERNELS]
     t0 = time.perf_counter()
     logs = _build.build([k.name for k in kernels])
     seconds = time.perf_counter() - t0
@@ -1253,6 +1673,15 @@ def main() -> int:
     wb_report, wb_launches = run_wideband_cli(dev, kernels)
     for name, n in wb_launches.items():
         launches[name] += n
+    tx = run_tx(dev, kernels)
+    for got in (tx["decode"]["launches"], *(m["launches"] for m in tx["wideband"].values())):
+        for name, n in got.items():
+            launches[name] += n
+    check_probe_kernels(dev)
+    probes = run_probes(dev, kernels)
+    for _, got in probes.values():
+        for name, n in got.items():
+            launches[name] += n
 
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
@@ -1266,9 +1695,10 @@ def main() -> int:
     clocks_after_scan = nvidia_smi(CLOCKS_QUERY)
     per_kernel = time_kernels(operands, decode_args, library)
     per_kernel["scan_block"] = time_scan_kernel(nb_scan_args)
+    probe_entries = probe_kernel_entries(dev, probes)
     rtf = narrowband_rtf(dev, nb_i, nb_q)
     log({"phase": "timing", "scan": scans, "clocks_after_scan": clocks_after_scan,
-         "kernels": per_kernel, "narrowband": rtf,
+         "kernels": per_kernel, "probe_kernels": probe_entries, "narrowband": rtf,
          "wideband_live": {mode: r["live"] for mode, r in wb_report.items()}})
     for mode, _ in CLI_MODES:
         log({"phase": "profile", **profile_scan(dev, mode, blocks, tables)})
@@ -1279,10 +1709,10 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     log({"kernels": [{
-        "name": k.name, "route": "cuda", "source": k.source,
+        "k": TPU_KERNEL_OF[k.name], "name": k.name, "route": "cuda", "source": k.source,
         "replaces": k.replaces, "launches": launches[k.name],
         "max_abs_err": report[k.name]["max_abs_err"],
-        **per_kernel[k.name]} for k in kernels]})
+        **per_kernel[k.name]} for k in path_kernels] + probe_entries})
     print(smi, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -431,3 +431,101 @@ def test_narrowband_sniffer_on_card_matches_cpu(dev, monkeypatch):
         assert out[0] == out[1]
         assert sum(e[3] for e in out[1][0]) == (5 if scan_len == 8192 else 4)
         assert [e[0] for e in out[1][3]][:2] == ["track_start", "chan_change"]
+
+
+# --------------------------------------------------------------------------
+# the probes' kernels (aa_corr, shift_stack, shift_fma), K3 at rows 80 and
+# the TX modulator
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sps", [2, 4, 8])
+@pytest.mark.parametrize("form", ["f32", "int8"])
+@pytest.mark.parametrize("grp", [1, 4, 8, 32])
+def test_aa_corr_matches_twin(dev, sps, form, grp):
+    """Exact against the twin on +-1/0 lattices (int8: any decision,
+    0 maps to -1), with masked signs (0 weights) and a ragged n_out."""
+    from btle_tpu_torch.tools._kernels import aa_corr, aa_corr_reference
+
+    rng = np.random.default_rng(sps * 10 + grp)
+    n_out = 5000 + 37 * sps
+    cols = n_out + 31 * sps + 11
+    if form == "int8":
+        s = torch.as_tensor(rng.integers(-1, 2, (40, cols)), dtype=torch.int8)
+    else:
+        s = torch.as_tensor(rng.choice([-1.0, 0.0, 1.0], (40, cols)), dtype=torch.float32)
+    w = torch.as_tensor(rng.choice([-1.0, 0.0, 1.0], (40, 32)), dtype=torch.float32)
+    s[:5, 100:100 + 32 * sps:sps] = (w[:5] if form == "f32" else w[:5].to(torch.int8))
+    want = aa_corr_reference(s, w, sps, n_out, n_mask=30)
+    got = aa_corr(s.to(dev), w.to(dev), sps, n_out, grp=grp, n_mask=30)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("grp,sps,k0", [(4, 4, 0), (8, 4, 64), (16, 2, 0), (8, 8, -8)])
+def test_shift_stack_matches_twin(dev, grp, sps, k0):
+    from btle_tpu_torch.tools._kernels import shift_stack, shift_stack_reference
+
+    rng = np.random.default_rng(grp)
+    s = torch.as_tensor(rng.normal(size=(40, 2176)), dtype=torch.float32)
+    got = shift_stack(s.to(dev), grp, sps, k0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), shift_stack_reference(s, grp, sps, k0))
+
+
+@pytest.mark.parametrize("rows,n,step,grp", [(40, 65, 2, 8), (80, 33, 4, 8),
+                                             (160, 17, 8, 4)])
+def test_shift_fma_matches_twin(dev, rows, n, step, grp):
+    """Within 1e-5 of max |out|: the same products summed in another
+    order (the kernel one FMA per tap in j order, the twin the tool's
+    groups)."""
+    from btle_tpu_torch.tools._kernels import shift_fma, shift_fma_reference
+
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    n_cols = 4 * 2048 + 77
+    f = torch.randn((rows, n_cols + step * (n - 1) + 5), generator=gen, device=dev)
+    kc = torch.randn((rows, n), generator=gen, device=dev)
+    got = shift_fma(f, kc, n_cols, step, grp)
+    want = shift_fma_reference(f, kc, n_cols, step, grp)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_polyx_at_80_rows_is_a_true_fp32_product(dev):
+    """K3 at rows 80, one slice, all-ones coefficients: y = W @ F, held
+    against the product in float64 (true FP32 sums of 80 terms)."""
+    rng = np.random.default_rng(80)
+    f = rng.normal(size=(80, 4096)).astype(np.float32)
+    w = rng.normal(size=(80, 80)).astype(np.float32)
+    ones = torch.ones((80, 1), device=dev)
+    y = fused.filterbank_polyx_f32(torch.as_tensor(f, device=dev), ones,
+                                   torch.as_tensor(w, device=dev), 4000, stack=1)
+    torch.cuda.synchronize()
+    want = w.astype(np.float64) @ f[:, :4000].astype(np.float64)
+    assert np.abs(y.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("flavor,sps", [("c", 4), ("python", 8), ("python", 4)])
+def test_modulator_on_card_matches_cpu(dev, flavor, sps):
+    from btle_tpu_torch.phy.modulator import modulate_batch
+
+    rng = np.random.default_rng(sps)
+    bits = torch.as_tensor(rng.integers(0, 2, (6, 2000)), dtype=torch.int8)
+    got = modulate_batch(bits.to(dev), flavor, sps)
+    want = modulate_batch(bits, flavor, sps)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+
+
+def test_probes_run_on_card(dev):
+    """Every probe's run() on the card at 2 tiles: each exact variant an
+    exact match, each checksum pair MATCH."""
+    from btle_tpu_torch.tools import (dev_aagrp_bisect, dev_aagrp_repro,
+                                      dev_roll_experiment, dev_rollscale)
+
+    assert dev_aagrp_repro.run(dev)["failures"] == 0
+    assert dev_aagrp_bisect.run(dev)["failures"] == 0
+    assert dev_rollscale.run(dev, n_tiles=2, iters=4, trials=1)["failures"] == 0
+    for dtype in ("f32", "bf16"):
+        res = dev_roll_experiment.run(dev, dtype=dtype, n_tiles=2, iters=4, trials=1)
+        assert res["failures"] == 0 and set(res["pairs"].values()) == {"MATCH"}

@@ -26,7 +26,9 @@ PORT_MODULES = [
     "btle_tpu_torch.ll.hop",
     "btle_tpu_torch.ll.multifollow",
     "btle_tpu_torch.phy",
+    "btle_tpu_torch.phy.modulator",
     "btle_tpu_torch.phy.scan_kernel",
+    "btle_tpu_torch.phy.tables",
     "btle_tpu_torch.rx",
     "btle_tpu_torch.rx.decode_kernel",
     "btle_tpu_torch.rx.decoder",
@@ -40,6 +42,17 @@ PORT_MODULES = [
     "btle_tpu_torch.stream.pcap",
     "btle_tpu_torch.stream.sniffer",
     "btle_tpu_torch.stream.sources",
+    "btle_tpu_torch.tools",
+    "btle_tpu_torch.tools._kernels",
+    "btle_tpu_torch.tools._measure",
+    "btle_tpu_torch.tools.dev_aagrp_bisect",
+    "btle_tpu_torch.tools.dev_aagrp_repro",
+    "btle_tpu_torch.tools.dev_roll_experiment",
+    "btle_tpu_torch.tools.dev_rollscale",
+    "btle_tpu_torch.tx",
+    "btle_tpu_torch.tx.descriptor",
+    "btle_tpu_torch.tx.playback",
+    "btle_tpu_torch.tx.synth",
     "btle_tpu_torch.cli",
     "btle_tpu_torch.cli.app",
     "btle_tpu_torch.wideband",

@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's numpy tables and helpers are
 equal to the originals: channelizer and fused-front-end table functions,
-spec tables, golden-model pieces, the self-test scene, and the
-convert.py round trip of scan and filter tables."""
+spec tables, golden-model pieces (pulses, phase tables, the three
+modulators), the fixed-point modulator tables, the TX descriptor and
+playback modules, the self-test scene, and the convert.py round trip of
+scan and filter tables."""
 
 import numpy as np
 import pytest
@@ -95,11 +97,67 @@ def test_golden_copies_equal(channel, phy):
     assert np.array_equal(G.gauss_fir(40), tG.gauss_fir(40))
 
 
+GOLDEN_COPIES = ["gauss_fir", "sin_cos_tables", "c_flavor_pulse", "c_flavor_taps",
+                 "gfsk_modulate_python", "gfsk_modulate_float", "gfsk_modulate_c",
+                 "_c_tables", "assemble_phy_bits"]
+
+
+@pytest.mark.parametrize("name", GOLDEN_COPIES)
+def test_golden_functions_are_copies(name):
+    """Each golden function the port copies has the original's code."""
+    import ast
+    import inspect
+
+    assert (ast.dump(ast.parse(inspect.getsource(getattr(G, name))))
+            == ast.dump(ast.parse(inspect.getsource(getattr(tG, name)))))
+
+
+@pytest.mark.parametrize("sps", [4, 8])
+def test_golden_modulator_copies_equal(sps):
+    bits = np.random.default_rng(sps).integers(0, 2, 300).astype(np.int8)
+    for r, g in zip(G.sin_cos_tables(64, sps), tG.sin_cos_tables(64, sps)):
+        assert r.dtype == g.dtype and np.array_equal(r, g)
+    assert np.array_equal(G.c_flavor_pulse(sps), tG.c_flavor_pulse(sps))
+    assert np.array_equal(G.c_flavor_taps(sps), tG.c_flavor_taps(sps))
+    for r, g in zip(G.gfsk_modulate_python(bits, sps), tG.gfsk_modulate_python(bits, sps)):
+        assert r.dtype == g.dtype and np.array_equal(r, g)
+    if sps == 4:
+        for r, g in zip(G.gfsk_modulate_c(bits, 4), tG.gfsk_modulate_c(bits, 4)):
+            assert r.dtype == g.dtype and np.array_equal(r, g)
+        for r, g in zip(G._c_tables(), tG._c_tables()):
+            assert np.array_equal(r, g)
+    with pytest.raises(ValueError):
+        tG.gfsk_modulate_python(bits, 80)
+
+
+@pytest.mark.parametrize("table_fn,sps", [("golden_mod_tables", 8),
+                                          ("golden_mod_tables", 4),
+                                          ("c_mod_tables", 4)])
+def test_mod_tables_equal(table_fn, sps):
+    from btle_tpu.phy import tables as jt
+
+    from btle_tpu_torch.phy import tables as tt
+
+    ref, got = getattr(jt, table_fn)(sps), getattr(tt, table_fn)(sps)
+    for r, g in zip(ref, got):
+        assert np.asarray(r).dtype == np.asarray(g).dtype and np.array_equal(r, g)
+
+
+def test_descriptor_constant_tables_equal():
+    from btle_tpu.tx import descriptor as jd
+
+    from btle_tpu_torch.tx import descriptor as td
+
+    for name in ("DEFAULT_SPACE_MS", "ADV_PKT_TYPES", "LL_CTRL_OPCODES", "AD_TYPES",
+                 "ALL_PKT_TYPES", "ADV_AA", "IBEACON_PREFIX"):
+        assert getattr(jd, name) == getattr(td, name), name
+
+
 @pytest.mark.parametrize("phy", ["1m", "2m"])
 def test_selftest_scene_equals_jax(phy):
-    """The port builds the known-answer scene from its golden copies; it
-    must be the JAX package's scene (built through the TX descriptor
-    path) sample for sample."""
+    """The port builds the known-answer scene through its TX descriptor
+    path, as the JAX package does; it must be the JAX package's scene
+    sample for sample."""
     from btle_tpu.wideband.selftest import _scene as jscene
 
     from btle_tpu_torch.wideband.selftest import _scene as tscene
@@ -109,8 +167,8 @@ def test_selftest_scene_equals_jax(phy):
     assert rexp.keys() == gexp.keys()
     for ch in rexp:
         assert np.array_equal(rexp[ch], gexp[ch])
-    np.testing.assert_allclose(gwi, rwi, rtol=0, atol=1e-4)
-    np.testing.assert_allclose(gwq, rwq, rtol=0, atol=1e-4)
+    assert gwi.dtype == rwi.dtype and np.array_equal(gwi, rwi)
+    assert gwq.dtype == rwq.dtype and np.array_equal(gwq, rwq)
 
 
 def test_convert_scan_tables_round_trip():
@@ -175,7 +233,8 @@ def test_k5_device_tables_equal_jax(num_taps):
 # numpy): their code must stay the original's
 COPIED_MODULES = ["ll/hop.py", "ll/multifollow.py", "stream/blocks.py",
                   "stream/sources.py", "stream/ndjson.py", "stream/pcap.py",
-                  "stream/control.py", "stream/hci.py"]
+                  "stream/control.py", "stream/hci.py", "tx/descriptor.py",
+                  "tx/playback.py"]
 
 
 @pytest.mark.parametrize("module", COPIED_MODULES)
