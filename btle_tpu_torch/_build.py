@@ -37,11 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes argument kinds of each C entry point, in order: "p" a device
 # pointer or the stream (c_void_p), "i" a 32-bit int, "l" a 64-bit int
 _SIGNATURES = {
-    # frames, weights, y, J, Ky, n_chunks, chunk, width, stream
-    "filterbank_bf16x2w": "pppliiiip",
+    # frames, hi/lo weights, y, J, Ky, K_pad, warps_m, stream
+    "filterbank_bf16x2w": "pppliiip",
+    "filterbank_im2col_f32x2": "pppliiip",
     # frames, weights, y, J, Ky, chunk, width, stream
     "filterbank_im2col_bf16": "pppliiip",
-    "filterbank_im2col_f32x2": "pppliiip",
     "filterbank_im2col_f32": "pppliiip",
     # f4, kcoefx, w4x, y, J, Ky, rows, n_slices, stack, stream
     "filterbank_polyx_f32": "ppppliiiip",
@@ -61,9 +61,10 @@ _SIGNATURES = {
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
 # the source of each entry point not named as its source
-_SOURCES = {**{name: "filterbank_im2col" for name in
-               ("filterbank_im2col_bf16", "filterbank_im2col_f32x2",
-                "filterbank_im2col_f32")},
+_SOURCES = {"filterbank_bf16x2w": "filterbank_hilo_mma",
+            "filterbank_im2col_f32x2": "filterbank_hilo_mma",
+            "filterbank_im2col_bf16": "filterbank_im2col",
+            "filterbank_im2col_f32": "filterbank_im2col",
             "shift_stack": "aa_corr"}
 
 

@@ -31,15 +31,43 @@ def scan_tables_from_numpy(aa_rows, aa_mask, whiten_rows, crc_inits,
             torch.tensor(np.asarray(adv_flags, bool), device=dev))
 
 
+# K rows of the hi/lo weight table come in multiples of the tensor-core
+# kernel's pipeline stage (csrc/filterbank_hilo_mma.cu kKS)
+HILO_K_ALIGN = 64
+
+
+def hilo_weights(g_chunks_hilo) -> torch.Tensor:
+    """The (n_chunks, 160, chunk*40) stacked hi/lo im2col pair (rows 0..79
+    hi, 80..159 lo) -> the (K_pad, 160) bf16 B operand of the tensor-core
+    filterbank: B[s*40 + i, o] = Ghi[s][o, i], B[s*40 + i, 80 + o] =
+    Glo[s][o, i] for s < n_chunks*chunk, zero rows up to K_pad, the next
+    multiple of HILO_K_ALIGN. Raises unless every entry is
+    bf16-representable (the bf16 table then holds it exactly)."""
+    gk = torch.as_tensor(np.asarray(g_chunks_hilo, np.float32))
+    n_chunks, rows, cols = gk.shape
+    if rows != 160 or cols % 40:
+        raise ValueError(f"not a stacked hi/lo im2col table: {tuple(gk.shape)}")
+    out = gk.to(torch.bfloat16)
+    if not torch.equal(out.to(torch.float32), gk):
+        raise ValueError("hi/lo weights are not bf16-representable")
+    k = n_chunks * cols
+    b = torch.zeros((-(-k // HILO_K_ALIGN) * HILO_K_ALIGN, rows), dtype=torch.bfloat16)
+    # gk[c, o, j*40 + i] is shift s = c*chunk + j: row s*40 + i of B
+    b[:k] = out.reshape(n_chunks, rows, cols // 40, 40).permute(0, 2, 3, 1).reshape(k, rows)
+    return b
+
+
 def filter_tables_from_numpy(kind: str, tables, device):
     """The fused front end's weight tables for one filterbank kind
     (``wideband.fused.filterbank_kind``), numpy -> tensors:
 
       "bf16x2w":    (g_chunks_hilo,) — the (n_chunks, 160, chunk*40)
-                    stacked hi/lo pair, every entry bf16-representable, so
-                    the bf16 tensor holds it exactly;
+                    stacked hi/lo pair -> (hilo_weights(g_chunks_hilo),);
       "f32x2":      (g_chunks_x2,) — the (n_chunks, 160, chunk*80) hi/lo
-                    pair with duplicated columns, bf16-representable too;
+                    pair whose weight columns are duplicated over the
+                    [xhi; xlo] frame rows (a Mosaic layout): the copies are
+                    checked equal and dropped, leaving the bf16x2w pair ->
+                    the same (K_pad, 160) B operand;
       "bf16":       (g_chunks,) — rounded to bf16 (round to nearest even),
                     as the JAX package casts it;
       "f32_im2col": (g_chunks,) as float32;
@@ -48,13 +76,23 @@ def filter_tables_from_numpy(kind: str, tables, device):
                     the DFT as float32.
     """
     dev = torch.device(device)
-    if kind in ("bf16x2w", "f32x2", "bf16"):
+    if kind == "bf16x2w":
+        (gk,) = tables
+        return (hilo_weights(gk).to(dev),)
+    if kind == "f32x2":
+        gk = np.asarray(tables[0], np.float32)
+        n, rows, cols = gk.shape
+        if cols % 80:
+            raise ValueError(f"not an f32x2 weight table: {gk.shape}")
+        pairs = gk.reshape(n, rows, cols // 80, 2, 40)
+        if not np.array_equal(pairs[:, :, :, 0], pairs[:, :, :, 1]):
+            raise ValueError("f32x2 weights: the xhi and xlo copies of a "
+                             "weight column differ")
+        return (hilo_weights(pairs[:, :, :, 0].reshape(n, rows, cols // 2)).to(dev),)
+    if kind == "bf16":
         (gk,) = tables
         gk = torch.as_tensor(np.asarray(gk, np.float32))
-        out = gk.to(torch.bfloat16)
-        if kind != "bf16" and not torch.equal(out.to(torch.float32), gk):
-            raise ValueError("hi/lo weights are not bf16-representable")
-        return (out.to(dev).contiguous(),)
+        return (gk.to(torch.bfloat16).to(dev).contiguous(),)
     if kind == "f32_im2col":
         (gk,) = tables
         return (torch.as_tensor(np.asarray(gk, np.float32), device=dev).contiguous(),)

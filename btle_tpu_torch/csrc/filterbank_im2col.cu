@@ -1,9 +1,10 @@
-// DFT-folded polyphase filterbank in the other numerics classes of the
-// im2col form: "bf16", "f32x2" and "f32".
+// DFT-folded polyphase filterbank in the single-operand numerics classes
+// of the im2col form: "bf16" and "f32".
 //
 // Replaces the TPU kernel body btle_tpu/wideband/fused.py:_kernel at
-// compute_dtype "bf16" (inners "im2col", "im2colp", "dots"), "f32x2"
-// ("im2col") and "f32" with the "im2col", "im2colp" or "dots" inner. The
+// compute_dtype "bf16" (inners "im2col", "im2colp", "dots") and "f32" with
+// the "im2col", "im2colp" or "dots" inner (the hi/lo classes "bf16x2w"
+// and "f32x2" run on the tensor cores, filterbank_hilo_mma.cu). The
 // inners are Mosaic schedules of one function; every one of a class runs
 // this kernel. It computes the 40-channel baseband before the demod tail:
 //   y[o, k] = sum_{s < width} sum_{i < 40} W[s][o, i] * F[i, k + s]
@@ -11,27 +12,17 @@
 // classes differ only in what W and F are:
 //   bf16  (filterbank_im2col_bf16): W = _g_chunks rounded to bf16,
 //         (n_chunks, 80, chunk*40); F the (40, J) bf16 frames;
-//   f32x2 (filterbank_im2col_f32x2): W = _g_chunks_x2, (n_chunks, 160,
-//         chunk*80) bf16, rows [hi; lo], each weight column duplicated
-//         over the [xhi; xlo] operand rows; F the (80, J) bf16 frames
-//         [xhi; xlo]. hi + lo and xhi + xlo are exact in f32 (8 + 8
-//         mantissa bits), so the kernel stages w = hi + lo and x = xhi +
-//         xlo and takes one FMA per term, where the TPU adds the four
-//         exact bf16 products to its f32 sum one by one: the two differ
-//         in rounding by a few f32 ulps of y;
 //   f32   (filterbank_im2col_f32): W = _g_chunks, (n_chunks, 80,
 //         chunk*40) f32; F the (40, J) f32 frames; true FP32 FMAs (the
 //         TPU's HIGHEST precision; no TF32 anywhere).
-// Every class stages W and F as f32 values and applies one fmaf per
-// term; the TPU's hi/lo row stacking is not carried over.
+// Every class stages W and F as f32 values and applies one fmaf per term.
 //
 // Bound on the H100: operations. 2 x 80 x 40 x 65 FLOP per output column,
 // ~55 GFLOP per 131k bench block: ~0.056 ms at the 989 TFLOP/s bf16
-// tensor-core rate for "bf16", four bf16 products per term (~0.22 ms) for
-// "f32x2", ~0.82 ms at the 67 TFLOP/s FP32 CUDA-core rate for "f32"; the
-// bytes (frames in, ~42 MB of y out) take ~16-23 us. This first kernel
-// runs every class on the CUDA cores (f32 FMA), as K1
-// (filterbank_bf16x2w.cu) does: one block per 128-column tile of y, all
+// tensor-core rate for "bf16", ~0.82 ms at the 67 TFLOP/s FP32 CUDA-core
+// rate for "f32"; the bytes (frames in, ~42 MB of y out) take ~16-23 us.
+// This first kernel runs both classes on the CUDA cores (f32 FMA): one
+// block per 128-column tile of y, all
 // 80 rows; the frame tile (40 x (128 + width - 1)) staged once in shared
 // memory as f32, the weights streamed from L2 in chunks of 5 shifts into
 // shared memory, each thread accumulating a 5-row x 8-column register
@@ -44,7 +35,7 @@
 
 namespace {
 
-constexpr int kIn = 40;       // frame rows (after the pair sum)
+constexpr int kIn = 40;       // frame rows
 constexpr int kOut = 80;      // y rows
 constexpr int kTileN = 128;   // y columns per block
 constexpr int kThreads = 256;
@@ -56,20 +47,17 @@ constexpr int kShiftChunk = 5;
 // The dynamic shared-memory limit set per kernel and device so far: a
 // launch raises it (cudaFuncSetAttribute) only when it needs more.
 constexpr int kMaxDevices = 64;
-int g_smem_limit[3][kMaxDevices];
+int g_smem_limit[2][kMaxDevices];
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// kPair: W rows [hi; lo] and F rows [xhi; xlo], each summed as staged.
-template <typename T, bool kPair>
+template <typename T>
 __device__ __forceinline__ void filterbank_body(
     float* smem, const T* __restrict__ frames, const T* __restrict__ gk,
     float* __restrict__ y, long long j, long long ky, int chunk, int width) {
-  constexpr int kFbRows = kPair ? 2 * kIn : kIn;     // operand rows per shift
-  constexpr int kWRows = kPair ? 2 * kOut : kOut;    // weight rows per chunk
   const int fsw = kTileN + width - 1;          // frame tile width
   float* fs = smem;                            // [kIn][fsw]
   float* ws = smem + kIn * fsw;                // [kShiftChunk][kOut][kIn]
@@ -79,12 +67,7 @@ __device__ __forceinline__ void filterbank_body(
   for (int idx = tid; idx < kIn * fsw; idx += kThreads) {
     const int i = idx / fsw, c = idx % fsw;
     const long long col = k0 + c;
-    float x = 0.0f;
-    if (col < j) {
-      x = to_f32(frames[(long long)i * j + col]);
-      if (kPair) x += to_f32(frames[(long long)(i + kIn) * j + col]);
-    }
-    fs[idx] = x;
+    fs[idx] = col < j ? to_f32(frames[(long long)i * j + col]) : 0.0f;
   }
 
   const int cg = tid % kGroups, rg = tid / kGroups;
@@ -94,8 +77,8 @@ __device__ __forceinline__ void filterbank_body(
 #pragma unroll
     for (int c = 0; c < kColsPT; ++c) acc[r][c] = 0.0f;
 
-  const long long row_stride = (long long)chunk * kFbRows;   // gk row length
-  const long long chunk_stride = (long long)kWRows * row_stride;
+  const long long row_stride = (long long)chunk * kIn;       // gk row length
+  const long long chunk_stride = (long long)kOut * row_stride;
   for (int s0 = 0; s0 < width; s0 += kShiftChunk) {
     __syncthreads();   // previous chunk's weights consumed (and fs staged)
     for (int idx = tid; idx < kShiftChunk * kOut * kIn; idx += kThreads) {
@@ -105,9 +88,8 @@ __device__ __forceinline__ void filterbank_body(
       float w = 0.0f;
       if (s < width) {
         const long long base =
-            (s / chunk) * chunk_stride + (long long)(s % chunk) * kFbRows + i;
+            (s / chunk) * chunk_stride + (long long)(s % chunk) * kIn + i;
         w = to_f32(gk[base + o * row_stride]);
-        if (kPair) w += to_f32(gk[base + (o + kOut) * row_stride]);
       }
       ws[idx] = w;
     }
@@ -144,22 +126,14 @@ __global__ void __launch_bounds__(kThreads) filterbank_im2col_bf16_kernel(
     const __nv_bfloat16* __restrict__ gk, float* __restrict__ y, long long j,
     long long ky, int chunk, int width) {
   extern __shared__ float smem[];
-  filterbank_body<__nv_bfloat16, false>(smem, frames, gk, y, j, ky, chunk, width);
-}
-
-__global__ void __launch_bounds__(kThreads) filterbank_im2col_f32x2_kernel(
-    const __nv_bfloat16* __restrict__ frames,
-    const __nv_bfloat16* __restrict__ gk, float* __restrict__ y, long long j,
-    long long ky, int chunk, int width) {
-  extern __shared__ float smem[];
-  filterbank_body<__nv_bfloat16, true>(smem, frames, gk, y, j, ky, chunk, width);
+  filterbank_body<__nv_bfloat16>(smem, frames, gk, y, j, ky, chunk, width);
 }
 
 __global__ void __launch_bounds__(kThreads) filterbank_im2col_f32_kernel(
     const float* __restrict__ frames, const float* __restrict__ gk,
     float* __restrict__ y, long long j, long long ky, int chunk, int width) {
   extern __shared__ float smem[];
-  filterbank_body<float, false>(smem, frames, gk, y, j, ky, chunk, width);
+  filterbank_body<float>(smem, frames, gk, y, j, ky, chunk, width);
 }
 
 template <typename T>
@@ -193,16 +167,9 @@ extern "C" int btle_filterbank_im2col_bf16(const void* frames, const void* gk,
                                frames, gk, y, j, ky, chunk, width, stream);
 }
 
-extern "C" int btle_filterbank_im2col_f32x2(const void* frames, const void* gk,
-                                            void* y, long long j, int ky,
-                                            int chunk, int width, void* stream) {
-  return launch<__nv_bfloat16>(filterbank_im2col_f32x2_kernel, g_smem_limit[1],
-                               frames, gk, y, j, ky, chunk, width, stream);
-}
-
 extern "C" int btle_filterbank_im2col_f32(const void* frames, const void* gk,
                                           void* y, long long j, int ky,
                                           int chunk, int width, void* stream) {
-  return launch<float>(filterbank_im2col_f32_kernel, g_smem_limit[2], frames,
+  return launch<float>(filterbank_im2col_f32_kernel, g_smem_limit[1], frames,
                        gk, y, j, ky, chunk, width, stream);
 }

@@ -8,12 +8,20 @@ module:
   1. the filterbank. ``filterbank_kind(compute_dtype, inner)`` maps each
      (numerics class, inner) pair the JAX package accepts onto one
      kernel (``FILTERBANK_KIND``):
-     - ``"bf16x2w"`` (shipped default; inners im2col, im2colp): the
-       DFT-folded polyphase filterbank, bf16 frames times the exact bf16
-       hi/lo weight pair (``filterbank_bf16x2w``, K1);
-     - ``"bf16"`` (im2col, im2colp, dots), ``"f32x2"`` (im2col) and
-       ``"f32"`` with im2col, im2colp or dots: the same folded
-       filterbank with the class's weights and frames
+     - ``"bf16x2w"`` (shipped default; inners im2col, im2colp) and
+       ``"f32x2"`` (im2col): the DFT-folded polyphase filterbank as a
+       bf16 tensor-core GEMM (mma.sync) of the exact bf16 hi/lo weight
+       pair, y^T = A . B with A the im2col (Toeplitz) view of the
+       time-major frames and B the (K_pad, 160) hi/lo table of
+       ``convert.hilo_weights`` (``filterbank_bf16x2w``, K1, and
+       ``filterbank_im2col(kind="f32x2")``, K5 at "f32x2"; one template,
+       ``csrc/filterbank_hilo_mma.cu``). ``hilo_frames`` writes the frames
+       time-major, (J, 40) bf16, and at "f32x2" also their exact bf16
+       hi/lo split, (2, J, 40), whose four products per term the kernel
+       sums into one accumulator;
+     - ``"bf16"`` (im2col, im2colp, dots) and ``"f32"`` with im2col,
+       im2colp or dots: the same folded filterbank with the class's
+       weights and (40, J) frames on the CUDA cores
        (``filterbank_im2col_*``, K5, one kernel templated on the class);
      - ``"f32"`` with polyx (its default), poly or polyroll, and
        ``"bf16"`` with poly (the frames rounded to bf16, the taps exact):
@@ -44,6 +52,7 @@ import torch
 
 from .._build import CudaKernel
 from .._device import as_tensor, resolve_device
+from ..convert import HILO_K_ALIGN
 from .channelizer import (D, DEFAULT_TAPS, M, _dft_matrix, _fused_kernel,
                           _poly_kernel, branch_columns, frame_rows, true_fp32)
 
@@ -51,11 +60,13 @@ AA_BITS = 32
 N_CHUNKS = 5        # im2col chunking of the shift axis (width 65 -> 5 x 13)
 POLYX_STACK = 2     # pre-shifted frame copies stacked per slice ("polyx")
 
+# K1 and K5 at "f32x2": the tensor-core hi/lo template (filterbank_hilo_mma.cu)
 FILTERBANK_BF16X2W = CudaKernel("filterbank_bf16x2w",
                                 replaces="btle_tpu/wideband/fused.py:373")
 FILTERBANK_POLYX_F32 = CudaKernel("filterbank_polyx_f32",
                                   replaces="btle_tpu/wideband/fused.py:620")
-# K5: one CUDA source templated on the numerics class, one kernel each
+# K5: one kernel per numerics class ("bf16", "f32_im2col" in
+# filterbank_im2col.cu; "f32x2" the hi/lo template's second instance)
 FILTERBANK_IM2COL = {
     kind: CudaKernel(f"filterbank_im2col_{cls}",
                      replaces="btle_tpu/wideband/fused.py:373")
@@ -262,64 +273,116 @@ def _check_cuda(name: str, *tensors):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def filterbank_bf16x2w_reference(frames, gk, width: int, ky: int):
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def hilo_warps_m(ky: int, sms: int) -> int:
+    """The tensor-core filterbank's column tile in 64-column warps (4, 2
+    or 1): the widest whose grid still gives each of ``sms`` SMs a CTA
+    (the kernel reads all the weights once per CTA, so wider is better
+    while every SM has work)."""
+    warps = 4
+    while warps > 1 and -(-ky // (64 * warps)) < sms:
+        warps //= 2
+    return warps
+
+
+def hilo_frames(f_t, n_cols: int, split: bool):
+    """(40, J) float32 frames -> the tensor-core filterbank's time-major
+    bf16 operand, zero past J up to ``n_cols`` rows: (n_cols, 40), or with
+    ``split`` (the "f32x2" class) the exact bf16 split (2, n_cols, 40),
+    xhi = bf16(x), xlo = bf16(x - xhi). Rounds to nearest even."""
+    x = f_t.t()
+    out = torch.zeros((2 if split else 1, n_cols, 2 * D), dtype=torch.bfloat16,
+                      device=f_t.device)
+    out[0, : x.shape[0]] = x
+    if split:
+        out[1, : x.shape[0]] = x - out[0, : x.shape[0]].to(torch.float32)
+    return out if split else out[0]
+
+
+def _hilo_conv_weights(b, width: int):
+    """The (K_pad, 160) hi/lo table -> float32 conv weights (160, 40,
+    width), W[o', i, s] = B[s*40 + i, o']."""
+    return (b[: width * 2 * D].to(torch.float32).reshape(width, 2 * D, 4 * M)
+            .permute(2, 1, 0).contiguous())
+
+
+def filterbank_bf16x2w_reference(frames, b, width: int, ky: int):
     """Plain twin of ``filterbank_bf16x2w``: one float32 convolution of the
-    frames with the stacked (160, 40, width) hi/lo weights, then the hi and
-    lo row halves summed (bf16 x bf16 products are exact in float32)."""
-    n_chunks, rows, cols = gk.shape
-    chunk = cols // (2 * D)
-    # W[o, i, c*chunk + j] = gk[c, o, j*40 + i]
-    w = (gk.to(torch.float32).reshape(n_chunks, rows, chunk, 2 * D)
-         .permute(1, 3, 0, 2).reshape(rows, 2 * D, n_chunks * chunk))
-    x = frames.to(torch.float32)[None, :, : ky + width - 1]
+    frames with the (160, 40, width) hi/lo weights, then the hi and lo row
+    halves summed (bf16 x bf16 products are exact in float32)."""
+    x = frames.to(torch.float32).t()[None, :, : ky + width - 1]
     with true_fp32():
-        y2 = torch.nn.functional.conv1d(x, w[:, :, :width].contiguous())[0]
+        y2 = torch.nn.functional.conv1d(x, _hilo_conv_weights(b, width))[0]
     return y2[: 2 * M] + y2[2 * M:]
 
 
-def filterbank_bf16x2w(frames, gk, width: int, ky: int):
-    """(40, J) bf16 frames (zero-padded to at least ky + width - 1 columns)
-    and the (n_chunks, 160, chunk*40) bf16 hi/lo weights -> y (80, ky)
-    float32, the 40-channel baseband before the demod tail."""
-    if frames.device.type == "cpu":
-        return filterbank_bf16x2w_reference(frames, gk, width, ky)
-    _check_cuda("filterbank_bf16x2w", frames, gk)
-    if frames.dtype != torch.bfloat16 or gk.dtype != torch.bfloat16:
-        raise ValueError("filterbank_bf16x2w takes bf16 frames and weights")
-    n_chunks, rows, cols = gk.shape
-    if frames.shape[0] != 2 * D or rows != 4 * M or n_chunks * cols < width * 2 * D:
-        raise ValueError(f"filterbank_bf16x2w: bad shapes {tuple(frames.shape)}, "
-                         f"{tuple(gk.shape)}")
-    y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
-    FILTERBANK_BF16X2W.launch(frames, gk, y, frames.shape[1], ky, n_chunks,
-                              cols // (2 * D), width)
+def filterbank_f32x2_reference(frames, b, width: int, ky: int):
+    """Plain twin of ``filterbank_im2col(kind="f32x2")``: the four-product
+    form the kernel and the TPU compute. The [xhi; xlo] frame rows are
+    convolved with the (160, 80, width) pair (each weight column over both
+    halves), the hi and lo row halves summed, one convolution per im2col
+    chunk of shifts, the chunk sums added — the TPU kernel's chunk
+    contractions (one convolution over all 65 shifts sums 2600 terms in a
+    row on the CPU, which flips ~1e-3 of the noise-floor decisions against
+    the JAX package at lag 1)."""
+    w = _hilo_conv_weights(b, width)
+    w2 = torch.cat([w, w], dim=1)
+    x = frames.to(torch.float32).permute(0, 2, 1).reshape(4 * D, -1)
+    chunk = -(-width // N_CHUNKS)
+    y = torch.zeros((2 * M, ky), dtype=torch.float32, device=frames.device)
+    with true_fp32():
+        for s0 in range(0, width, chunk):
+            s1 = min(s0 + chunk, width)
+            yc = torch.nn.functional.conv1d(
+                x[None, :, s0: s1 + ky - 1], w2[:, :, s0:s1].contiguous())[0]
+            y += yc[: 2 * M] + yc[2 * M:]
     return y
 
 
+def _launch_hilo(kernel, frames, b, width: int, ky: int, n_ops: int):
+    _check_cuda(kernel.name, frames, b)
+    if (frames.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or frames.ndim != (2 if n_ops == 1 else 3) or frames.shape[-1] != 2 * D
+            or (n_ops == 2 and frames.shape[0] != 2)
+            or b.ndim != 2 or b.shape[1] != 4 * M or b.shape[0] % HILO_K_ALIGN
+            or b.shape[0] < width * 2 * D):
+        raise ValueError(f"{kernel.name}: bad dtypes or shapes "
+                         f"{tuple(frames.shape)} {frames.dtype}, "
+                         f"{tuple(b.shape)} {b.dtype}")
+    y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
+    kernel.launch(frames, b, y, frames.shape[-2], ky, b.shape[0],
+                  hilo_warps_m(ky, _sm_count(frames.device)))
+    return y
+
+
+def filterbank_bf16x2w(frames, b, width: int, ky: int):
+    """K1: (J, 40) time-major bf16 frames (``hilo_frames``, zero-padded to
+    at least ky + width - 1 rows) and the (K_pad, 160) bf16 hi/lo weights
+    (``convert.hilo_weights``) -> y (80, ky) float32, the 40-channel
+    baseband before the demod tail."""
+    if frames.device.type == "cpu":
+        return filterbank_bf16x2w_reference(frames, b, width, ky)
+    return _launch_hilo(FILTERBANK_BF16X2W, frames, b, width, ky, 1)
+
+
 def filterbank_im2col_reference(frames, gk, width: int, ky: int, kind: str):
-    """Plain twin of ``filterbank_im2col`` (K5): the class's frames
-    convolved with its (80, 40, width) weights in true FP32, one
-    convolution per im2col chunk of shifts, summed — the TPU kernel's
-    chunk contractions. (One convolution over all 65 shifts sums 2600
-    terms in a row on the CPU, about four times the rounding error of
-    the chunked sum, which flips ~1e-3 of the noise-floor decisions
-    against the JAX package at lag 1.) At "f32x2" the hi/lo halves of
-    weights and frames are summed first (exact in float32), as the
-    kernel stages them."""
-    pair = kind == "f32x2"
+    """Plain twin of ``filterbank_im2col`` (K5): at "f32x2"
+    ``filterbank_f32x2_reference``; else the class's frames convolved
+    with its (80, 40, width) weights in true FP32, one convolution per
+    im2col chunk of shifts, summed — the TPU kernel's chunk contractions
+    (see ``filterbank_f32x2_reference`` for why)."""
+    if kind == "f32x2":
+        return filterbank_f32x2_reference(frames, gk, width, ky)
     n_chunks, rows, cols = gk.shape
-    fb_rows = 2 * D * (2 if pair else 1)
-    chunk = cols // fb_rows
-    g = gk.to(torch.float32)
-    if pair:
-        g = (g[:, : 2 * M] + g[:, 2 * M:]).reshape(
-            n_chunks, 2 * M, chunk, 2, 2 * D)[:, :, :, 0]
+    chunk = cols // (2 * D)
     # W[o, i, c*chunk + j] = g[c, o, j*40 + i]
-    w = (g.reshape(n_chunks, 2 * M, chunk, 2 * D).permute(1, 3, 0, 2)
+    w = (gk.to(torch.float32).reshape(n_chunks, 2 * M, chunk, 2 * D).permute(1, 3, 0, 2)
          .reshape(2 * M, 2 * D, n_chunks * chunk))
     x = frames.to(torch.float32)
-    if pair:
-        x = x[: 2 * D] + x[2 * D:]
     y = torch.zeros((2 * M, ky), dtype=torch.float32, device=frames.device)
     with true_fp32():
         for s0 in range(0, width, chunk):
@@ -331,27 +394,28 @@ def filterbank_im2col_reference(frames, gk, width: int, ky: int, kind: str):
 
 def filterbank_im2col(frames, gk, width: int, ky: int, kind: str):
     """K5: the folded filterbank in numerics class ``kind`` — "bf16":
-    (40, J) bf16 frames, (n_chunks, 80, chunk*40) bf16 weights; "f32x2":
-    (80, J) bf16 frames [xhi; xlo], (n_chunks, 160, chunk*80) bf16
-    weights (_g_chunks_x2); "f32_im2col": (40, J) float32 frames and
-    weights. Frames zero-padded to at least ky + width - 1 columns ->
-    y (80, ky) float32."""
+    (40, J) bf16 frames, (n_chunks, 80, chunk*40) bf16 weights;
+    "f32_im2col": (40, J) float32 frames and weights; "f32x2": the (2, J,
+    40) time-major [xhi; xlo] bf16 frames (``hilo_frames``) and the
+    (K_pad, 160) hi/lo weights, on the tensor-core template. Frames
+    zero-padded to at least ky + width - 1 columns -> y (80, ky)
+    float32."""
     if frames.device.type == "cpu":
         return filterbank_im2col_reference(frames, gk, width, ky, kind)
     kernel = FILTERBANK_IM2COL[kind]
+    if kind == "f32x2":
+        return _launch_hilo(kernel, frames, gk, width, ky, 2)
     _check_cuda(kernel.name, frames, gk)
-    pair = kind == "f32x2"
     dtype = torch.float32 if kind == "f32_im2col" else torch.bfloat16
     n_chunks, rows, cols = gk.shape
-    fb_rows = 2 * D * (2 if pair else 1)
     if (frames.dtype != dtype or gk.dtype != dtype
-            or frames.shape[0] != fb_rows or rows != 2 * M * (2 if pair else 1)
-            or cols % fb_rows or n_chunks * (cols // fb_rows) < width):
+            or frames.shape[0] != 2 * D or rows != 2 * M
+            or cols % (2 * D) or n_chunks * (cols // (2 * D)) < width):
         raise ValueError(f"{kernel.name}: bad dtypes or shapes "
                          f"{tuple(frames.shape)} {frames.dtype}, "
                          f"{tuple(gk.shape)} {gk.dtype}")
     y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
-    kernel.launch(frames, gk, y, frames.shape[1], ky, cols // fb_rows, width)
+    kernel.launch(frames, gk, y, frames.shape[1], ky, cols // (2 * D), width)
     return y
 
 
@@ -492,18 +556,17 @@ def frontend_operands(i_wb, q_wb, aa_rows, aa_mask, num_taps: int,
     # last hit position; columns past K come from zero frames, as on the TPU
     ky = max(k_out, n_hit + win - 1)
 
-    if kind in ("bf16x2w", "bf16", "f32x2", "f32_im2col"):
+    if kind in ("bf16x2w", "f32x2"):
+        (b,) = _device_tables(kind, num_taps, cutoff_mhz, device)
+        frames = hilo_frames(f_t, ky + width - 1, kind == "f32x2")
+        fb_args = ((frames, b, width, ky) if kind == "bf16x2w"
+                   else (frames, b, width, ky, kind))
+    elif kind in ("bf16", "f32_im2col"):
         (gk,) = _device_tables(kind, num_taps, cutoff_mhz, device)
         frames = torch.nn.functional.pad(f_t, (0, ky + width - 1 - f_t.shape[1]))
-        if kind == "f32x2":
-            # the exact bf16 hi/lo split of the frames, stacked on rows
-            hi = frames.to(torch.bfloat16)
-            frames = torch.cat([hi, (frames - hi.to(torch.float32))
-                                .to(torch.bfloat16)])
-        elif kind != "f32_im2col":
+        if kind == "bf16":
             frames = frames.to(torch.bfloat16)
-        fb_args = ((frames, gk, width, ky) if kind == "bf16x2w"
-                   else (frames.contiguous(), gk, width, ky, kind))
+        fb_args = (frames.contiguous(), gk, width, ky, kind)
     else:
         if kind == "bf16_poly":
             f_t = f_t.to(torch.bfloat16).to(torch.float32)

@@ -9,12 +9,14 @@ JSON line per phase:
   0. device: torch version, card name and power limit, clocks (nvidia-smi);
   1. build: seconds to compile the kernels (one nvcc per source, in
      parallel) and each kernel's ptxas register / shared-memory report;
+     the tensor-core hi/lo filterbank (K1, K5 f32x2) must not spill;
   2. kernels: each kernel against its plain PyTorch twin on the card, on
      one bench-geometry block with packets in it (131072 + 1476 channel
      samples, 1280-tap prototype, 16 candidate slots), the filterbank in
-     every numerics class (K1 bf16x2w, K3 f32 polyx, K5 bf16 / f32x2 /
-     f32 im2col) and each against one cuDNN convolution computing the
-     same y (timed later as its yardstick); the narrowband
+     every numerics class (K1 bf16x2w and K5 f32x2 on the tensor cores,
+     K3 f32 polyx, K5 bf16 / f32 im2col) and each against one cuDNN
+     convolution computing the same y (timed later as its yardstick); the
+     narrowband
      scan on a 131072 + 1473-sample int16 block at sps 4 / lag 1, at
      sps 8 / lag 8, with an all-zero care mask and on the 40 float
      channel rows of the wideband block with per-row access addresses;
@@ -73,7 +75,9 @@ JSON line per phase:
      blocks (as bench.py), median Msps per CLI mode, the clocks right
      after; per-kernel time, its
      twin's time, the bound, and for each filterbank one cuDNN
-     convolution computing the same y as yardstick; the narrowband
+     convolution computing the same y as yardstick; K1 also at the live
+     block's shape (8192 + halo columns: its twin, ms, CTAs, bound,
+     yardstick); the narrowband
      real-time factor (air seconds per wall second, median of 3 runs)
      at both block sizes; then a torch.profiler trace of 8 scan steps
      per mode: device time by kernel and the device's idle share; each
@@ -91,6 +95,7 @@ from __future__ import annotations
 
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -426,10 +431,14 @@ def check_kernels(dev):
         kern, twin = fused.FILTERBANKS[fused.filterbank_kind(mode, inner)]
         y, y_ref = kern(*fb_args), twin(*fb_args)
         torch.cuda.synchronize()
-        err = float((y - y_ref).abs().max())
+        diff = (y - y_ref).abs()
+        worst = divmod(int(diff.argmax()), diff.shape[1])
+        err = float(diff[worst])
         scale = float(y_ref.abs().max())
         ok = err <= 1e-5 * scale and bool(torch.isfinite(y).all())
-        report[name] = {"max_abs_err": err, "max_abs_y": scale, "ok": ok}
+        # where the largest error lies: its (row, column) and y there
+        report[name] = {"max_abs_err": err, "max_abs_y": scale, "ok": ok,
+                        "worst_at": list(worst), "y_at_worst": float(y_ref[worst])}
         operands[name] = (fb_args, tail_args, y_ref)
         if not ok:
             raise AssertionError(f"{name} disagrees with its twin: {report[name]}")
@@ -487,7 +496,8 @@ def filterbank_library_calls(operands) -> dict:
     timed as a yardstick only (the port never calls them): the kernel's
     own frames with its im2col weight table unfolded to (rows, frame
     rows, width) —
-      filterbank_bf16x2w, filterbank_im2col_f32x2: bf16 on tensor cores,
+      filterbank_bf16x2w, filterbank_im2col_f32x2 (hilo_library_call):
+        bf16 on tensor cores,
         the (160, ., width) hi/lo rows, then the hi and lo halves summed
         in f32 (at f32x2 over the 80 [xhi; xlo] frame rows);
       filterbank_im2col_bf16: bf16, the (80, 40, width) hi weights;
@@ -500,9 +510,9 @@ def filterbank_library_calls(operands) -> dict:
 
     from btle_tpu_torch.wideband.channelizer import true_fp32
 
-    calls = {}
-    for name in ("filterbank_bf16x2w", "filterbank_im2col_bf16",
-                 "filterbank_im2col_f32x2", "filterbank_im2col_f32"):
+    calls = {name: hilo_library_call(operands[name][0])
+             for name in ("filterbank_bf16x2w", "filterbank_im2col_f32x2")}
+    for name in ("filterbank_im2col_bf16", "filterbank_im2col_f32"):
         frames, gk, width = operands[name][0][:3]
         n_chunks, rows, cols = gk.shape
         fb_rows = frames.shape[0]
@@ -511,11 +521,85 @@ def filterbank_library_calls(operands) -> dict:
 
         def call(x=frames[None], w=w):
             with true_fp32():
-                y = torch.nn.functional.conv1d(x, w)[0].to(torch.float32)
-            return y if y.shape[0] == 80 else y[:80] + y[80:]
+                return torch.nn.functional.conv1d(x, w)[0].to(torch.float32)
         calls[name] = call
     calls["filterbank_polyx_f32"] = calls["filterbank_im2col_f32"]
     return calls
+
+
+def hilo_library_call(fb_args):
+    """The cuDNN yardstick of the tensor-core hi/lo filterbank: the
+    frames as (40, J) bf16 rows ([xhi; xlo], 80 rows, at f32x2), the
+    (K_pad, 160) table unfolded to (160, rows, width) bf16 conv weights
+    (each column over both halves at f32x2), one convolution, the hi and
+    lo halves summed in f32."""
+    import torch
+
+    from btle_tpu_torch.wideband import fused
+    from btle_tpu_torch.wideband.channelizer import true_fp32
+
+    frames, b, width = fb_args[:3]
+    w = fused._hilo_conv_weights(b, width).to(torch.bfloat16)
+    if frames.ndim == 3:
+        x = frames.permute(0, 2, 1).reshape(2 * frames.shape[2], -1)
+        w = torch.cat([w, w], dim=1)
+    else:
+        x = frames.t()
+    x, w = x.contiguous()[None], w.contiguous()
+
+    def call():
+        with true_fp32():
+            y = torch.nn.functional.conv1d(x, w)[0].to(torch.float32)
+        return y[:80] + y[80:]
+    return call
+
+
+def hilo_grid(dev, ky: int) -> dict:
+    """The tensor-core filterbank's column tile and grid at ky columns."""
+    import torch
+
+    from btle_tpu_torch.wideband import fused
+
+    warps = fused.hilo_warps_m(ky, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return {"columns": ky, "tile_columns": 64 * warps, "ctas": -(-ky // (64 * warps))}
+
+
+def hilo_bound(fb_args, products: int):
+    """bound_ms of the hi/lo filterbank: frames, weights and y moved once;
+    ``products`` bf16 products (2 FLOP each) per weight term and column."""
+    frames, b, width, ky = fb_args[:4]
+    return dict(zip(("bound_ms", "bound_by"), bound_ms(
+        frames.numel() * 2 + b.numel() * 2 + 80 * ky * 4,
+        products * 2 * 80 * 40 * width * ky, BF16_FLOPS)))
+
+
+def time_live_k1(dev) -> dict:
+    """K1 at the live block's shape (the CLI's 8192-sample blocks, 1279
+    samples of filter context, noise of std 30): within 1e-5 of max |y|
+    of its twin, its device time, grid, bound and cuDNN yardstick."""
+    import torch
+
+    from btle_tpu_torch.rx.pipeline import required_halo
+    from btle_tpu_torch.wideband import fused
+    from btle_tpu_torch.wideband.sniffer import default_scan_tables
+
+    n = (WB_SCAN_LEN + required_halo(4, 4)) * 20 + NUM_TAPS - 1
+    gen = torch.Generator(device=dev).manual_seed(9)
+    xi, xq = (30.0 * torch.randn(n, generator=gen, device=dev) for _ in range(2))
+    aa, mask = default_scan_tables(dev)[:2]
+    fb, _ = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4,
+                                    "bf16x2w", 1.0, dev)
+    y, y_ref = fused.filterbank_bf16x2w(*fb), fused.filterbank_bf16x2w_reference(*fb)
+    torch.cuda.synchronize()
+    err, scale = float((y - y_ref).abs().max()), float(y_ref.abs().max())
+    if not (err <= 1e-5 * scale and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"filterbank_bf16x2w at the live shape: max |dy| "
+                             f"{err} at max |y| {scale}")
+    return {**hilo_grid(dev, fb[3]), "max_abs_err": err, "max_abs_y": scale,
+            **kernel_times(fused.FILTERBANK_BF16X2W, lambda: fused.filterbank_bf16x2w(*fb),
+                           lambda: fused.filterbank_bf16x2w_reference(*fb), 50,
+                           library=hilo_library_call(fb)),
+            **hilo_bound(fb, 2)}
 
 
 def zero_launches(kernels) -> None:
@@ -1414,21 +1498,20 @@ def time_kernels(operands, decode_args, library) -> dict:
     from btle_tpu_torch.wideband import fused
 
     out = {}
-    fb, _, _ = operands["filterbank_bf16x2w"]
-    frames, gk, width, ky = fb
-    rows = gk.shape[1]
-    out["filterbank_bf16x2w"] = {
-        **kernel_times(fused.FILTERBANK_BF16X2W,
-                       lambda: fused.filterbank_bf16x2w(*fb),
-                       lambda: fused.filterbank_bf16x2w_reference(*fb), 10,
-                       library=library["filterbank_bf16x2w"]),
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            frames.numel() * 2 + gk.numel() * 2 + 80 * ky * 4,
-            2 * rows * 40 * width * ky, BF16_FLOPS))),
-    }
-    for name, rate, products in (("filterbank_im2col_bf16", BF16_FLOPS, 1),
-                                 ("filterbank_im2col_f32x2", BF16_FLOPS, 4),
-                                 ("filterbank_im2col_f32", FP32_FLOPS, 1)):
+    # the hi/lo pair: two bf16 products per term at bf16x2w, four at f32x2
+    for name, kernel, fn, twin, products in (
+            ("filterbank_bf16x2w", fused.FILTERBANK_BF16X2W, fused.filterbank_bf16x2w,
+             fused.filterbank_bf16x2w_reference, 2),
+            ("filterbank_im2col_f32x2", fused.FILTERBANK_IM2COL["f32x2"],
+             fused.filterbank_im2col, fused.filterbank_im2col_reference, 4)):
+        fb, _, _ = operands[name]
+        out[name] = {
+            **kernel_times(kernel, lambda fn=fn, fb=fb: fn(*fb),
+                           lambda twin=twin, fb=fb: twin(*fb), 10, library=library[name]),
+            **hilo_bound(fb, products), **hilo_grid(fb[0].device, fb[3]),
+        }
+    for name, rate in (("filterbank_im2col_bf16", BF16_FLOPS),
+                       ("filterbank_im2col_f32", FP32_FLOPS)):
         fb, _, _ = operands[name]
         frames, gk, width, ky, kind = fb
         out[name] = {
@@ -1436,11 +1519,10 @@ def time_kernels(operands, decode_args, library) -> dict:
                            lambda fb=fb: fused.filterbank_im2col(*fb),
                            lambda fb=fb: fused.filterbank_im2col_reference(*fb), 10,
                            library=library[name]),
-            # f32x2: the four bf16 products per term the function needs
             **dict(zip(("bound_ms", "bound_by"), bound_ms(
                 frames.numel() * frames.element_size()
                 + gk.numel() * gk.element_size() + 80 * ky * 4,
-                products * 2 * 80 * 40 * width * ky, rate))),
+                2 * 80 * 40 * width * ky, rate))),
         }
     fb, _, _ = operands["filterbank_polyx_f32"]
     f4, kcoefx, w4x, ky, _ = fb
@@ -1638,6 +1720,10 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
              for n, text in logs.items()}
     log({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    spills = [ln for ln in ptxas.get("filterbank_hilo_mma", [])
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    if spills:
+        raise AssertionError(f"the tensor-core filterbank spills: {spills}")
 
     report, operands, decode_args, library, wb_operands = check_kernels(dev)
     nb_i, nb_q, nb_want = narrowband_scene()
@@ -1695,6 +1781,7 @@ def main() -> int:
     clocks_after_scan = nvidia_smi(CLOCKS_QUERY)
     per_kernel = time_kernels(operands, decode_args, library)
     per_kernel["scan_block"] = time_scan_kernel(nb_scan_args)
+    per_kernel["filterbank_bf16x2w"]["live"] = time_live_k1(dev)
     probe_entries = probe_kernel_entries(dev, probes)
     rtf = narrowband_rtf(dev, nb_i, nb_q)
     log({"phase": "timing", "scan": scans, "clocks_after_scan": clocks_after_scan,

@@ -7,7 +7,9 @@ flip), sps 2 (LE 2M), the 640-tap prototype, a ragged block length,
 per-channel AA rows with care-mask holes, an all-zero care mask, float
 channel rows in the narrowband scan, candidate windows past the lattice
 end in both tail modes, every (compute_dtype, inner) pair of the fused
-front end (K1, K3, K5) — every knob-matrix row's self-test, and the
+front end (K1, K3, K5), the tensor-core hi/lo filterbank (K1, K5 f32x2)
+at the live block's shape, each column tile, a ragged ky and frames
+shorter than ky + width - 1 — every knob-matrix row's self-test, and the
 port's device path against its CPU path (wideband sniffer with and
 without connection following, its live ring loop, the narrowband
 sniffer). They import no JAX, so they
@@ -129,6 +131,65 @@ def test_every_mode_matches_twin(dev, dtype, inner, num_taps, cutoff, sps, lag,
     y, y_ref = kern(*fb_args), twin(*fb_args)
     assert counters[kind].launches == before + 1
     assert y.shape == (80, fb_args[3]) and bool(torch.isfinite(y).all())
+    assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
+
+
+# the tensor-core hi/lo filterbank (K1, K5 f32x2) at the shapes the main
+# paths give it: label, num_taps, sps, lag, has_context, wideband samples
+HILO_CASES = [
+    ("live", 1280, 4, 4, True, (8192 + 1476) * 20 + 1279),    # ~9668 columns
+    ("tile128", 1280, 4, 4, True, 24_000 * 20 + 1279),
+    ("ragged", 1280, 4, 4, False, 100_003),
+    ("sps2_lag1", 1280, 2, 1, False, 110_000),
+    ("lag1_context", 1280, 4, 1, True, 60_000 + 1279),
+    ("taps640", 640, 4, 4, True, 70_001),
+]
+
+
+@pytest.mark.parametrize("label,num_taps,sps,lag,ctx,n", HILO_CASES)
+@pytest.mark.parametrize("dtype", ["bf16x2w", "f32x2"])
+def test_hilo_kernels_match_twin(dev, dtype, label, num_taps, sps, lag, ctx, n):
+    """K1 and K5 at "f32x2" on the tensor cores against their twins: max
+    |dy| within 1e-5 of max |y|, one launch, at the live block's shape,
+    at each column tile (64, 128, 256 columns), at a ky no tile divides,
+    at sps 2 / lag 1, with filter context and at 640 taps."""
+    wi, wq = _scene(n % 1000, phy="2m" if sps == 2 else "1m", n=n)
+    xi, xq = torch.as_tensor(wi, device=dev), torch.as_tensor(wq, device=dev)
+    aa = torch.as_tensor(B.hex_to_bits("d6be898e"), device=dev)
+    mask = torch.ones(32, dtype=torch.int8, device=dev)
+    fb_args, _ = fused.frontend_operands(xi, xq, aa, mask, num_taps, ctx, sps,
+                                         lag, dtype, 1.0, dev)
+    ky = fb_args[3]
+    counter = (fused.FILTERBANK_BF16X2W if dtype == "bf16x2w"
+               else fused.FILTERBANK_IM2COL["f32x2"])
+    kern, twin = fused.FILTERBANKS[dtype]
+    before = counter.launches
+    y, y_ref = kern(*fb_args), twin(*fb_args)
+    assert counter.launches == before + 1
+    assert y.shape == (80, ky) and bool(torch.isfinite(y).all())
+    assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
+    if label == "ragged":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert ky % (64 * fused.hilo_warps_m(ky, sms))
+
+
+@pytest.mark.parametrize("dtype", ["bf16x2w", "f32x2"])
+def test_hilo_kernels_zero_frames_past_j(dev, dtype):
+    """Frames shorter than ky + width - 1 rows: the kernel reads zeros
+    past J, as the twin does on the zero-padded frames."""
+    wi, wq = _scene(5, n=40_000)
+    xi, xq = torch.as_tensor(wi, device=dev), torch.as_tensor(wq, device=dev)
+    aa = torch.as_tensor(B.hex_to_bits("d6be898e"), device=dev)
+    mask = torch.ones(32, dtype=torch.int8, device=dev)
+    fb_args, _ = fused.frontend_operands(xi, xq, aa, mask, 1280, False, 4, 4,
+                                         dtype, 1.0, dev)
+    frames, rest = fb_args[0], fb_args[1:]
+    cut = frames.shape[-2] - 700
+    short = frames[..., :cut, :].contiguous()
+    padded = torch.zeros_like(frames)
+    padded[..., :cut, :] = short
+    kern, twin = fused.FILTERBANKS[dtype]
+    y, y_ref = kern(short, *rest), twin(padded, *rest)
     assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
 
 
@@ -265,6 +326,13 @@ def test_wrappers_reject_bad_operands(dev):
         fused.filterbank_bf16x2w(y[:40].to(torch.float32),
                                  torch.zeros((5, 160, 520), dtype=torch.bfloat16,
                                              device=dev), 65, 3000)
+    frames = torch.zeros((3064, 40), dtype=torch.bfloat16, device=dev)
+    b = torch.zeros((2624, 160), dtype=torch.bfloat16, device=dev)
+    for bad in ((frames, b[:2600]), (frames.t().contiguous(), b), (frames, b[:, :80])):
+        with pytest.raises(ValueError):
+            fused.filterbank_bf16x2w(*bad, 65, 3000)
+    with pytest.raises(ValueError):       # f32x2 takes the (2, J, 40) pair
+        fused.filterbank_im2col(frames, b, 65, 3000, "f32x2")
 
 
 # --------------------------------------------------------------------------

@@ -195,3 +195,37 @@ def test_unported_modes_raise():
         with pytest.raises(ValueError):
             fused_frontend(wi, wq, aa_rows, mask, compute_dtype=dtype,
                            inner=inner, device="cpu")
+
+
+@pytest.mark.parametrize("dtype,has_context", [("bf16x2w", False), ("bf16x2w", True),
+                                               ("f32x2", False), ("f32x2", True)])
+def test_time_major_frames_match_frame_rows(dtype, has_context):
+    """The tensor-core filterbank's frames (fused.hilo_frames) are
+    frame_rows transposed to (J, 40) and rounded to bf16 ("f32x2": the
+    exact hi/lo split, xhi + xlo within bf16 rounding of the lo half),
+    zero past J up to ky + width - 1 rows."""
+    from btle_tpu_torch.wideband.channelizer import frame_rows
+    from btle_tpu_torch.wideband.fused import _g_stack, frontend_operands
+
+    wi, wq = _scene(6, n=30011)
+    aa_rows, mask, *_ = _tables()
+    fb_args, _ = frontend_operands(wi, wq, aa_rows, mask, 640, has_context, 4, 4,
+                                   dtype, 1.0, torch.device("cpu"))
+    frames, width, ky = fb_args[0], fb_args[2], fb_args[3]
+    f_t = frame_rows(torch.as_tensor(wi), torch.as_tensor(wq), 640, has_context)
+    j = f_t.shape[1]
+    assert width == _g_stack(640).shape[0]
+    x = f_t.t().contiguous()
+    hi = x.to(torch.bfloat16)
+    if dtype == "f32x2":
+        assert tuple(frames.shape) == (2, ky + width - 1, 40)
+        lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
+        assert torch.equal(frames[0, :j], hi) and torch.equal(frames[1, :j], lo)
+        sum_err = (frames[0, :j].float() + frames[1, :j].float() - x).abs()
+        assert bool((sum_err <= x.abs() * 2.0 ** -16).all())
+        tail = frames[:, j:]
+    else:
+        assert tuple(frames.shape) == (ky + width - 1, 40) and frames.is_contiguous()
+        assert torch.equal(frames[:j], hi)
+        tail = frames[j:]
+    assert frames.dtype == torch.bfloat16 and not bool(tail.any())

@@ -184,13 +184,30 @@ def test_convert_scan_tables_round_trip():
         assert np.array_equal(g.numpy().astype(r.dtype), r)
 
 
+def _hilo_mapping(g_hilo):
+    """The tensor-core B operand by its definition, entry by entry:
+    B[s*40 + i, o] = Ghi[s][o, i], B[s*40 + i, 80 + o] = Glo[s][o, i] with
+    G[s] the shift-s block of the stacked im2col pair (rows 0..79 hi,
+    80..159 lo), zero rows up to a multiple of 64."""
+    n_chunks, _, cols = g_hilo.shape
+    chunk = cols // 40
+    shifts = n_chunks * chunk
+    want = np.zeros((-(-shifts * 40 // 64) * 64, 160), np.float32)
+    for s in range(shifts):
+        c, j = divmod(s, chunk)
+        for o in range(80):
+            want[s * 40: s * 40 + 40, o] = g_hilo[c, o, j * 40: j * 40 + 40]
+            want[s * 40: s * 40 + 40, 80 + o] = g_hilo[c, 80 + o, j * 40: j * 40 + 40]
+    return want
+
+
 @pytest.mark.parametrize("num_taps", [640, 1280])
 def test_convert_filter_tables_round_trip(num_taps):
-    (gk,) = convert.filter_tables_from_numpy(
+    (b,) = convert.filter_tables_from_numpy(
         "bf16x2w", (jfused._g_chunks_hilo(num_taps),), "cpu")
-    assert gk.dtype == torch.bfloat16
-    assert np.array_equal(gk.to(torch.float32).numpy(),
-                          jfused._g_chunks_hilo(num_taps))
+    assert b.dtype == torch.bfloat16 and b.is_contiguous()
+    assert np.array_equal(b.to(torch.float32).numpy(),
+                          _hilo_mapping(jfused._g_chunks_hilo(num_taps)))
     perm, kcoefx, w4x = convert.filter_tables_from_numpy(
         "f32", jfused._polyx_tables(num_taps), "cpu")
     ref = jfused._polyx_tables(num_taps)
@@ -210,7 +227,9 @@ def test_convert_filter_tables_round_trip(num_taps):
 def test_k5_device_tables_equal_jax(num_taps):
     """The weights K5 runs on, per numerics class, are the JAX package's
     at that class: _g_chunks rounded to bf16 ("bf16", as jnp.asarray casts
-    it), _g_chunks_x2 ("f32x2") and _g_chunks ("f32" im2col), exactly."""
+    it), _g_chunks_x2 with its duplicated columns dropped, in the
+    tensor-core B layout ("f32x2"), and _g_chunks ("f32" im2col),
+    exactly."""
     import jax.numpy as jnp
 
     dev = torch.device("cpu")
@@ -221,7 +240,8 @@ def test_k5_device_tables_equal_jax(num_taps):
     assert np.array_equal(bf16.to(torch.float32).numpy(), want)
     (x2,) = tfused._device_tables("f32x2", num_taps, 1.0, dev)
     assert x2.dtype == torch.bfloat16
-    assert np.array_equal(x2.to(torch.float32).numpy(), jfused._g_chunks_x2(num_taps))
+    assert np.array_equal(x2.to(torch.float32).numpy(),
+                          _hilo_mapping(jfused._g_chunks_hilo(num_taps)))
     (f32,) = tfused._device_tables("f32_im2col", num_taps, 1.0, dev)
     assert f32.dtype == torch.float32
     assert np.array_equal(f32.numpy(), jfused._g_chunks(num_taps))
@@ -254,3 +274,34 @@ def test_runtime_source_byte_equal():
     root = pathlib.Path(__file__).resolve().parent.parent
     assert ((root / "btle_tpu_torch" / "runtime" / "runtime.cpp").read_bytes()
             == (root / "btle_tpu" / "runtime" / "runtime.cpp").read_bytes())
+
+
+# the tap counts of the CPU tests (640, the selftest's 1280) and smaller
+HILO_TAPS = [80, 160, 640, 1280]
+
+
+@pytest.mark.parametrize("num_taps", HILO_TAPS)
+@pytest.mark.parametrize("kind,table_fn", [("bf16x2w", "_g_chunks_hilo"),
+                                           ("f32x2", "_g_chunks_x2")])
+def test_hilo_weight_layout_is_the_mapping(kind, table_fn, num_taps):
+    """The tensor-core kernel's B operand, built through
+    filter_tables_from_numpy from the JAX package's own table of the
+    class, equals the mapping element by element with zero padding; the
+    bf16x2w and f32x2 tables give one B."""
+    (b,) = convert.filter_tables_from_numpy(
+        kind, (getattr(jfused, table_fn)(num_taps),), "cpu")
+    want = _hilo_mapping(jfused._g_chunks_hilo(num_taps))
+    assert b.dtype == torch.bfloat16 and tuple(b.shape) == want.shape
+    assert b.shape[0] % convert.HILO_K_ALIGN == 0
+    assert b.shape[0] >= jfused._g_stack(num_taps).shape[0] * 40
+    assert np.array_equal(b.to(torch.float32).numpy(), want)
+
+
+@pytest.mark.parametrize("num_taps", [640, 1280])
+def test_f32x2_table_with_differing_copies_is_refused(num_taps):
+    bad = jfused._g_chunks_x2(num_taps).copy()
+    bad[2, 17, 80 * 3 + 40 + 5] += np.float32(2.0 ** -8)   # the xlo copy only
+    with pytest.raises(ValueError, match="differ"):
+        convert.filter_tables_from_numpy("f32x2", (bad,), "cpu")
+    with pytest.raises(ValueError):
+        convert.filter_tables_from_numpy("f32x2", (bad[:, :, :-40],), "cpu")
