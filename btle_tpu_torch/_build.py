@@ -42,7 +42,8 @@ _SIGNATURES = {
     "filterbank_im2col_f32x2": "pppliiip",
     # frames, weights, y, J, Ky, chunk, width, stream
     "filterbank_im2col_bf16": "pppliiip",
-    "filterbank_im2col_f32": "pppliiip",
+    # frames, (40, S, 80) weights, y, J, Ky, S, width, warps, stream
+    "filterbank_im2col_f32": "pppliiiip",
     # f4, kcoefx, w4x, y, J, Ky, rows, n_slices, stack, stream
     "filterbank_polyx_f32": "ppppliiiip",
     # y, aa_rows, aa_mask, bits, hit, mag, Ky, n_bits, n_hit, sps, lag, stream
@@ -59,12 +60,21 @@ _SIGNATURES = {
     # f, kc, out, rows, ld_f, n_cols, n, step, stream
     "shift_fma": "pppilliip",
 }
+# the kernels whose source also exports btle_<name>_plan(..., int info[5]):
+# the launch shape a call would take, read back as PLAN_KEYS
+_PLAN_SIGNATURES = {
+    # rows, n, step, n_cols, 16-byte copies
+    "shift_fma": "iiili",
+    # Ky, width, warps
+    "filterbank_im2col_f32": "iii",
+}
+PLAN_KEYS = ("smem_bytes", "ctas_per_sm", "ctas", "threads", "tile_columns")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
 # the source of each entry point not named as its source
 _SOURCES = {"filterbank_bf16x2w": "filterbank_hilo_mma",
             "filterbank_im2col_f32x2": "filterbank_hilo_mma",
             "filterbank_im2col_bf16": "filterbank_im2col",
-            "filterbank_im2col_f32": "filterbank_im2col",
+            "filterbank_im2col_f32": "filterbank_sgemm_f32",
             "shift_stack": "aa_corr"}
 
 
@@ -163,6 +173,20 @@ class CudaKernel:
             fn.restype = ctypes.c_int
             self._fn = (lib, fn)
         return self._fn[1]
+
+    def plan(self, *args) -> dict:
+        """The launch shape of a call with ``args`` (the kernel's C
+        ``btle_<name>_plan``, on the current device): {PLAN_KEYS: int}.
+        Only the kernels of _PLAN_SIGNATURES have one."""
+        self._load()
+        fn = getattr(self._fn[0], f"btle_{self.name}_plan")
+        fn.argtypes = [_CTYPES[c] for c in _PLAN_SIGNATURES[self.name]] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        info = (ctypes.c_int * len(PLAN_KEYS))()
+        err = fn(*args, info)
+        if err != 0:
+            raise RuntimeError(f"{self.name}_plan failed: cudaError {err}")
+        return dict(zip(PLAN_KEYS, info))
 
     def launch(self, *args):
         """Launch on the current CUDA stream. Tensors pass as their device

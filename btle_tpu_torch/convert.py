@@ -57,6 +57,23 @@ def hilo_weights(g_chunks_hilo) -> torch.Tensor:
     return b
 
 
+def sgemm_weights(g_chunks) -> torch.Tensor:
+    """The (n_chunks, 80, chunk*40) im2col weights -> the (40, S, 80)
+    float32 table of the CUDA-core FP32 filterbank (csrc/filterbank_sgemm_f32.cu),
+    S = n_chunks*chunk shifts: T[i, s, o] = G[s // chunk][o, (s % chunk)*40
+    + i], the weights of every shift of one input row contiguous, o
+    fastest. Takes a numpy array or a tensor (kept on its device)."""
+    gk = torch.as_tensor(g_chunks)
+    if gk.dtype != torch.float32:
+        gk = gk.to(torch.float32)
+    n_chunks, rows, cols = gk.shape
+    if rows != 80 or cols % 40:
+        raise ValueError(f"not an im2col weight table: {tuple(gk.shape)}")
+    # gk[c, o, j*40 + i] is shift s = c*chunk + j: T[i, s, o]
+    return (gk.reshape(n_chunks, rows, cols // 40, 40).permute(3, 0, 2, 1)
+            .reshape(40, n_chunks * (cols // 40), rows).contiguous())
+
+
 def filter_tables_from_numpy(kind: str, tables, device):
     """The fused front end's weight tables for one filterbank kind
     (``wideband.fused.filterbank_kind``), numpy -> tensors:
@@ -70,7 +87,7 @@ def filter_tables_from_numpy(kind: str, tables, device):
                     the same (K_pad, 160) B operand;
       "bf16":       (g_chunks,) — rounded to bf16 (round to nearest even),
                     as the JAX package casts it;
-      "f32_im2col": (g_chunks,) as float32;
+      "f32_im2col": (g_chunks,) -> (sgemm_weights(g_chunks),), float32;
       "f32", "bf16_poly": (perm, kcoefx, w4x[, n_slices]) of _polyx_tables
                     — the frame-row gather as int64, the stacked taps and
                     the DFT as float32.
@@ -95,7 +112,7 @@ def filter_tables_from_numpy(kind: str, tables, device):
         return (gk.to(torch.bfloat16).to(dev).contiguous(),)
     if kind == "f32_im2col":
         (gk,) = tables
-        return (torch.as_tensor(np.asarray(gk, np.float32), device=dev).contiguous(),)
+        return (sgemm_weights(np.asarray(gk, np.float32)).to(dev),)
     if kind in ("f32", "bf16_poly"):
         perm, kcoefx, w4x = tables[:3]
         return (torch.as_tensor(np.asarray(perm), dtype=torch.long, device=dev),

@@ -1,33 +1,28 @@
-// DFT-folded polyphase filterbank in the single-operand numerics classes
-// of the im2col form: "bf16" and "f32".
+// DFT-folded polyphase filterbank in the "bf16" numerics class of the
+// im2col form.
 //
 // Replaces the TPU kernel body btle_tpu/wideband/fused.py:_kernel at
-// compute_dtype "bf16" (inners "im2col", "im2colp", "dots") and "f32" with
-// the "im2col", "im2colp" or "dots" inner (the hi/lo classes "bf16x2w"
-// and "f32x2" run on the tensor cores, filterbank_hilo_mma.cu). The
-// inners are Mosaic schedules of one function; every one of a class runs
-// this kernel. It computes the 40-channel baseband before the demod tail:
+// compute_dtype "bf16" (inners "im2col", "im2colp", "dots"); "f32" with
+// those inners runs filterbank_sgemm_f32.cu, and the hi/lo classes
+// "bf16x2w" and "f32x2" run on the tensor cores, filterbank_hilo_mma.cu.
+// The inners are Mosaic schedules of one function; every one of the class
+// runs this kernel. It computes the 40-channel baseband before the demod
+// tail:
 //   y[o, k] = sum_{s < width} sum_{i < 40} W[s][o, i] * F[i, k + s]
-// for o < 80 (rows 0..39 = y_i bins, 40..79 = y_q bins) and k < Ky. The
-// classes differ only in what W and F are:
-//   bf16  (filterbank_im2col_bf16): W = _g_chunks rounded to bf16,
-//         (n_chunks, 80, chunk*40); F the (40, J) bf16 frames;
-//   f32   (filterbank_im2col_f32): W = _g_chunks, (n_chunks, 80,
-//         chunk*40) f32; F the (40, J) f32 frames; true FP32 FMAs (the
-//         TPU's HIGHEST precision; no TF32 anywhere).
-// Every class stages W and F as f32 values and applies one fmaf per term.
+// for o < 80 (rows 0..39 = y_i bins, 40..79 = y_q bins) and k < Ky, with W
+// = _g_chunks rounded to bf16, (n_chunks, 80, chunk*40), and F the (40, J)
+// bf16 frames (filterbank_im2col_bf16). It stages W and F as f32 values
+// and applies one fmaf per term.
 //
 // Bound on the H100: operations. 2 x 80 x 40 x 65 FLOP per output column,
 // ~55 GFLOP per 131k bench block: ~0.056 ms at the 989 TFLOP/s bf16
-// tensor-core rate for "bf16", ~0.82 ms at the 67 TFLOP/s FP32 CUDA-core
-// rate for "f32"; the bytes (frames in, ~42 MB of y out) take ~16-23 us.
-// This first kernel runs both classes on the CUDA cores (f32 FMA): one
-// block per 128-column tile of y, all
-// 80 rows; the frame tile (40 x (128 + width - 1)) staged once in shared
-// memory as f32, the weights streamed from L2 in chunks of 5 shifts into
-// shared memory, each thread accumulating a 5-row x 8-column register
-// tile with conflict-free shared-memory reads. Tensor cores are later
-// work.
+// tensor-core rate; the bytes (frames in, ~42 MB of y out) take ~16 us.
+// This first kernel runs on the CUDA cores (f32 FMA): one block per
+// 128-column tile of y, all 80 rows; the frame tile (40 x (128 + width -
+// 1)) staged once in shared memory as f32, the weights streamed from L2 in
+// chunks of 5 shifts into shared memory, each thread accumulating a 5-row
+// x 8-column register tile with conflict-free shared-memory reads. The
+// tensor-core version is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,12 +39,11 @@ constexpr int kRowsPT = kOut / kGroups;     // 5
 constexpr int kColsPT = kTileN / kGroups;   // 8
 constexpr int kShiftChunk = 5;
 
-// The dynamic shared-memory limit set per kernel and device so far: a
-// launch raises it (cudaFuncSetAttribute) only when it needs more.
+// The dynamic shared-memory limit set per device so far: a launch raises
+// it (cudaFuncSetAttribute) only when it needs more.
 constexpr int kMaxDevices = 64;
-int g_smem_limit[2][kMaxDevices];
+int g_smem_limit[kMaxDevices];
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
@@ -129,13 +123,6 @@ __global__ void __launch_bounds__(kThreads) filterbank_im2col_bf16_kernel(
   filterbank_body<__nv_bfloat16>(smem, frames, gk, y, j, ky, chunk, width);
 }
 
-__global__ void __launch_bounds__(kThreads) filterbank_im2col_f32_kernel(
-    const float* __restrict__ frames, const float* __restrict__ gk,
-    float* __restrict__ y, long long j, long long ky, int chunk, int width) {
-  extern __shared__ float smem[];
-  filterbank_body<float>(smem, frames, gk, y, j, ky, chunk, width);
-}
-
 template <typename T>
 int launch(void (*kernel)(const T*, const T*, float*, long long, long long,
                           int, int),
@@ -163,13 +150,6 @@ int launch(void (*kernel)(const T*, const T*, float*, long long, long long,
 extern "C" int btle_filterbank_im2col_bf16(const void* frames, const void* gk,
                                            void* y, long long j, int ky,
                                            int chunk, int width, void* stream) {
-  return launch<__nv_bfloat16>(filterbank_im2col_bf16_kernel, g_smem_limit[0],
+  return launch<__nv_bfloat16>(filterbank_im2col_bf16_kernel, g_smem_limit,
                                frames, gk, y, j, ky, chunk, width, stream);
-}
-
-extern "C" int btle_filterbank_im2col_f32(const void* frames, const void* gk,
-                                          void* y, long long j, int ky,
-                                          int chunk, int width, void* stream) {
-  return launch<float>(filterbank_im2col_f32_kernel, g_smem_limit[1], frames,
-                       gk, y, j, ky, chunk, width, stream);
 }

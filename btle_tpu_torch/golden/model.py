@@ -1,16 +1,21 @@
-"""Partial numpy copy of btle_tpu.golden.model: the pulse shapes, phase
-tables and the three GFSK modulators (the two fixed-point flavors and
-the float one) and frame assembly — the oracle of the port's TX path
-(``phy/modulator.py``, ``tx/``) and the synthesis of test scenes,
-without the JAX package.
+"""Numpy copy of btle_tpu.golden.model, the bit-true golden chain: the
+pulse shapes, phase tables and the three GFSK modulators (the two
+fixed-point flavors and the float one), frame assembly, the golden
+transmitter and receiver (first-CRC-OK-phase-wins) and the channel
+impairments — the oracle of the port's TX path (``phy/modulator.py``,
+``tx/``) and the synthesis of test scenes, without the JAX package.
 
 Copied from btle_tpu/golden/model.py (gauss_fir, sin_cos_tables,
 c_flavor_pulse, c_flavor_taps, gfsk_modulate_python,
-gfsk_modulate_float, gfsk_modulate_c, _c_tables, assemble_phy_bits);
-tests/test_torch_tables.py holds the copies equal to the originals.
+gfsk_modulate_float, gfsk_modulate_c, _c_tables, assemble_phy_bits,
+btle_tx, demod_symbol_lag, search_bit_sequence, GoldenRxResult, btle_rx,
+add_freq_sampling_error, add_noise); tests/test_torch_tables.py holds
+the copies equal to the originals.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -205,3 +210,158 @@ def assemble_phy_bits(
     phy_out = info_crc.copy()
     phy_out[pdu_at:] = W.whiten_bits(info_crc[pdu_at:], channel)
     return phy_out
+
+
+def btle_tx(
+    pdu_bits: np.ndarray,
+    channel: int = 37,
+    crc_init_hex: str = ADV_CRC_INIT_HEX,
+    access_address_hex: str = ADV_ACCESS_ADDRESS_HEX,
+    sps: int = 8,
+    flavor: str = "python",
+    phy: str = "1m",
+):
+    """Full golden transmitter. Returns (i, q, phy_bits).
+
+    phy "2m" emits LE 2M framing (16-bit preamble); the modulator is
+    symbol-indexed so sps samples/symbol then means 2*sps Msps on air.
+    """
+    phy = assemble_phy_bits(pdu_bits, channel, crc_init_hex,
+                            access_address_hex, phy=phy)
+    if flavor == "python":
+        cos_o, sin_o, _ = gfsk_modulate_python(phy, sps)
+    elif flavor == "c":
+        cos_o, sin_o = gfsk_modulate_c(phy, sps)
+    else:
+        raise ValueError(flavor)
+    return cos_o, sin_o, phy
+
+
+# --------------------------------------------------------------------------
+# Receiver
+# --------------------------------------------------------------------------
+
+
+def demod_symbol_lag(i: np.ndarray, q: np.ndarray):
+    """Symbol-rate phase-difference decision (btlelib.py:395-400).
+
+    Inputs are already decimated to symbol rate; lag is one symbol.
+    """
+    i = np.asarray(i, dtype=np.int32)
+    q = np.asarray(q, dtype=np.int32)
+    d = i[:-1] * q[1:] - i[1:] * q[:-1]
+    return (d > 0).astype(np.int8), d
+
+
+def search_bit_sequence(bits: np.ndarray, pattern: np.ndarray) -> int:
+    """First exact-match index or -1 (btlelib.py:402-412)."""
+    bits = np.asarray(bits)
+    pattern = np.asarray(pattern)
+    n, m = len(bits), len(pattern)
+    for s in range(n - m + 1):
+        if np.array_equal(bits[s : s + m], pattern):
+            return s
+    return -1
+
+
+@dataclass
+class GoldenRxResult:
+    pdu_bits: np.ndarray
+    crc_ok: bool
+    payload_len: int
+    phy_bits: np.ndarray
+    bits_all_phases: np.ndarray
+    decision_all_phases: np.ndarray
+    best_phase: int
+
+
+def btle_rx(
+    i: np.ndarray,
+    q: np.ndarray,
+    channel: int = 37,
+    crc_init_hex: str = ADV_CRC_INIT_HEX,
+    access_address_hex: str = ADV_ACCESS_ADDRESS_HEX,
+    sps: int = 8,
+) -> GoldenRxResult:
+    """Golden receiver with first-CRC-OK-phase-wins semantics.
+
+    Exact port of btlelib.btle_rx (btlelib.py:414-541), SPS-parametric.
+    """
+    aa_bits = B.hex_to_bits(access_address_hex)
+    crc_init_bits = B.hex_to_bits(crc_init_hex)
+    i = np.asarray(i, dtype=np.int16)
+    q = np.asarray(q, dtype=np.int16)
+
+    num_sample = len(i)
+    num_bit = int(round(num_sample / sps)) - 1
+    bits_all = np.zeros((sps, num_bit), dtype=np.int8)
+    dec_all = np.zeros((sps, num_bit), dtype=np.int32)
+
+    pdu_bits = np.array([], dtype=np.int8)
+    phy_bits = np.array([], dtype=np.int8)
+    payload_len = 0
+    crc_ok = False
+    phase = 0
+    for phase in range(sps):
+        b, d = demod_symbol_lag(i[phase::sps], q[phase::sps])
+        n = min(len(b), num_bit)
+        bits_all[phase, :n] = b[:n]
+        dec_all[phase, :n] = d[:n]
+        if n < num_bit and len(b):
+            # Reference pads the tail with the last demodulated value
+            # (btlelib.py:465-467).
+            bits_all[phase, -1] = b[-1]
+            dec_all[phase, -1] = d[-1]
+
+        start = search_bit_sequence(bits_all[phase], aa_bits)
+        if start == -1:
+            continue
+        phy_bits = np.concatenate(
+            [np.zeros(8, dtype=np.int8), bits_all[phase, start:]]
+        )  # fake preamble, btlelib.py:474
+        dewhitened = phy_bits.copy()
+        dewhitened[40:] = W.whiten_bits(phy_bits[40:], channel)
+
+        len_bits = 6 if channel in (37, 38, 39) else 5
+        payload_len = B.bits_to_uint(dewhitened[48 : 48 + len_bits])
+        crc_start = 40 + 16 + payload_len * 8
+        if crc_start + 24 > len(dewhitened):
+            crc_start = len(dewhitened) - 24  # btlelib.py:488-490
+        pdu_bits = dewhitened[40:crc_start]
+        crc_calc = C.crc24_bits(pdu_bits, crc_init_bits)
+        crc_rx = dewhitened[crc_start : crc_start + 24]
+        crc_ok = bool(np.array_equal(crc_calc, crc_rx))
+        if crc_ok:
+            break
+
+    return GoldenRxResult(pdu_bits, crc_ok, payload_len, phy_bits, bits_all, dec_all, phase)
+
+
+# --------------------------------------------------------------------------
+# Channel impairments (btlelib.py:823-873)
+# --------------------------------------------------------------------------
+
+
+def add_freq_sampling_error(i, q, ppm_value: float, sps: int = 8, fc_hz: float = 2450e6):
+    """Joint sampling-clock and carrier frequency offset model."""
+    i = np.asarray(i, dtype=np.double)
+    q = np.asarray(q, dtype=np.double)
+    err = ppm_value / 1e6
+    xp = np.linspace(0, len(i) - 1, len(i))
+    x = xp * (1.0 + err)
+    i2 = np.interp(x, xp, i)
+    q2 = np.interp(x, xp, q)
+    fo = err * fc_hz
+    new_ts = (1.0 / sps) * 1e-6 * (1 + err)
+    rot = np.exp(1j * 2.0 * np.pi * fo * new_ts * xp)
+    iq = (i2 + 1j * q2) * rot
+    return np.real(iq), np.imag(iq), fo
+
+
+def add_noise(i, q, snr_db: float, rng: np.random.Generator | None = None):
+    """AWGN with SNR referenced to int8 peak power 127^2 (btlelib.py:859-873)."""
+    rng = rng or np.random.default_rng()
+    sigma = 127 / np.power(10, snr_db / 20) / np.sqrt(2)
+    i = np.asarray(i, dtype=np.double) + rng.normal(0, sigma, len(i))
+    q = np.asarray(q, dtype=np.double) + rng.normal(0, sigma, len(q))
+    return i, q

@@ -6,8 +6,11 @@ from .pdu import (  # noqa: F401
     AdvHeader,
     AdvPayload,
     AdvPduType,
+    LlCtrlOpcode,
+    LlCtrlPayload,
     LlHeader,
     LlPayload,
+    LlPduType,
     extract_adv_a,
     parse_adv_header,
     parse_adv_payload,

@@ -48,3 +48,13 @@ def aa_match_counts(bits: torch.Tensor, aa_bits, aa_mask, sps: int) -> torch.Ten
         corr = corr + s[..., j * sps: j * sps + n_out] * t[..., j: j + 1]
     n_mask = mask.sum()
     return ((corr + n_mask) * 0.5).to(torch.int32)
+
+
+def aa_hits(i, q, aa_bits, aa_mask, sps: int, lag: int):
+    """Full-rate hit mask: position n is a hit iff all unmasked AA bits
+    match starting at lattice position n with symbol stride sps. Returns
+    (hit (..., N - lag - 31*sps) bool, bits (..., N - lag) int8)."""
+    bits = decisions(i, q, lag)
+    counts = aa_match_counts(bits, aa_bits, aa_mask, sps)
+    n_mask = torch.as_tensor(aa_mask, device=bits.device).to(torch.int32).sum()
+    return counts == n_mask, bits

@@ -18,6 +18,7 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Iterator
 
 import numpy as np
 
@@ -95,6 +96,10 @@ def _load() -> ctypes.CDLL | None:
     lib.udp_source_stop.argtypes = [p]
     lib.udp_source_datagrams.restype = u64
     lib.udp_source_datagrams.argtypes = [p]
+    lib.deinterleave_i8.argtypes = [ctypes.POINTER(ctypes.c_int8), sz, i16p, i16p]
+    lib.deinterleave_i16.argtypes = [ctypes.POINTER(ctypes.c_int16), sz, i16p, i16p]
+    lib.deinterleave_f32.argtypes = [
+        ctypes.POINTER(ctypes.c_float), sz, ctypes.c_float, i16p, i16p]
     _lib = lib
     return lib
 
@@ -203,3 +208,51 @@ class UdpIngest:
         if self._ptr:
             self._lib.udp_source_stop(self._ptr)
             self._ptr = None
+
+
+def deinterleave(interleaved: np.ndarray, fmt: str = "i16", scale: float = 256.0):
+    """Native (or NumPy-fallback) wire-format deinterleave -> (i16, q16)."""
+    lib = _load()
+    arr = np.ascontiguousarray(interleaved)
+    n_pairs = len(arr) // 2
+    if lib is None:
+        a = arr
+        if fmt == "f32":
+            a = np.round(arr.astype(np.float32) * scale)
+        return a[0::2].astype(np.int16), a[1::2].astype(np.int16)
+    i = np.empty(n_pairs, dtype=np.int16)
+    q = np.empty(n_pairs, dtype=np.int16)
+    ip = i.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
+    qp = q.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
+    if fmt == "i8":
+        lib.deinterleave_i8(arr.astype(np.int8, copy=False).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int8)), n_pairs, ip, qp)
+    elif fmt == "i16":
+        lib.deinterleave_i16(arr.astype(np.int16, copy=False).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int16)), n_pairs, ip, qp)
+    elif fmt == "f32":
+        lib.deinterleave_f32(arr.astype(np.float32, copy=False).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_float)), n_pairs, ctypes.c_float(scale), ip, qp)
+    else:
+        raise ValueError(fmt)
+    return i, q
+
+
+def ring_source(ring: IqRingBuffer, scan_len: int, halo: int,
+                poll_s: float = 0.005, stop=None) -> Iterator:
+    """Adapter: consume a ring as a block source for the stream layer.
+    Yields (i, q) blocks of scan_len+halo; ends when ``stop()`` is truthy
+    and the ring is drained."""
+    import time as _time
+
+    while True:
+        blk = ring.read_block(scan_len, halo)
+        if blk is not None:
+            yield blk
+            continue
+        if stop is not None and stop():
+            tail = ring.drain()
+            if len(tail[0]):
+                yield tail
+            return
+        _time.sleep(poll_s)

@@ -27,6 +27,7 @@ AA_CORR = CudaKernel("aa_corr", replaces="tools/dev_aagrp_repro.py:118")
 SHIFT_STACK = CudaKernel("shift_stack", replaces="tools/dev_aagrp_repro.py:118")
 SHIFT_FMA = CudaKernel("shift_fma", replaces="tools/dev_rollscale.py:75")
 GROUPS = (1, 2, 4, 8, 16, 32)   # accumulation groupings aa_corr takes
+SHIFT_FMA_STEPS = (2, 4, 8)     # the slice strides the shift_fma kernel takes
 
 
 def aa_corr_reference(s, w, sps: int, n_out: int, grp: int = 8,
@@ -119,7 +120,8 @@ def shift_fma(f, kc, n_cols: int, step: int, grp: int = 8):
     {40, 80, 160}, L >= n_cols + step*(N-1) -> (40, n_cols) float32:
     out = fold(sum_j f[:, k + step*j] * kc[:, j]). ``grp`` orders the
     twin's sum (the tool's register groups); the kernel sums each row in
-    j order, so the two agree to float32 rounding."""
+    j order, so the two agree to float32 rounding. On a card ``step`` is
+    one of SHIFT_FMA_STEPS (the tool's three configurations)."""
     rows, n = kc.shape
     if rows not in (OUT_ROWS, 2 * OUT_ROWS, 4 * OUT_ROWS) or f.shape[0] != rows:
         raise ValueError("shift_fma: R must be 40, 80 or 160 rows")
@@ -130,9 +132,21 @@ def shift_fma(f, kc, n_cols: int, step: int, grp: int = 8):
     _check_cuda("shift_fma", f, kc)
     if f.dtype != torch.float32 or kc.dtype != torch.float32:
         raise ValueError("shift_fma: takes float32 frames and coefficients")
+    if step not in SHIFT_FMA_STEPS:
+        raise ValueError(f"shift_fma: the kernel takes step {SHIFT_FMA_STEPS}")
     out = torch.empty((OUT_ROWS, n_cols), dtype=torch.float32, device=f.device)
     SHIFT_FMA.launch(f, kc, out, rows, f.shape[1], n_cols, n, step)
     return out
+
+
+def shift_fma_plan(f, kc, n_cols: int, step: int) -> dict:
+    """The launch shape ``shift_fma`` takes for these CUDA operands:
+    dynamic shared memory, resident CTAs per SM, grid, threads and
+    columns per CTA (``_build.PLAN_KEYS``), and whether the rows go
+    through 16-byte copies (row stride and base 16-byte aligned)."""
+    vec16 = f.shape[1] % 4 == 0 and f.data_ptr() % 16 == 0
+    return {**SHIFT_FMA.plan(kc.shape[0], kc.shape[1], step, n_cols, int(vec16)),
+            "copy_bytes": 16 if vec16 else 4}
 
 
 KERNELS = (AA_CORR, SHIFT_STACK, SHIFT_FMA)

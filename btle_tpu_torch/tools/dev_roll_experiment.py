@@ -10,9 +10,10 @@ undone:
 
   im2col-copy, im2col-sroll (sroll32 in bf16)  K5 (``filterbank_im2col``,
             kind "f32_im2col", or "bf16" with --dtype bf16) on the tool's
-            G (5, 80, 520), which is already K5's weight layout; the sroll
-            variants reverse the shifts inside each chunk of G, undone
-            before the launch.
+            G (5, 80, 520), which is already K5's bf16 weight layout (at
+            f32, ``convert.sgemm_weights`` lays it out as (40, 65, 80));
+            the sroll variants reverse the shifts inside each chunk of G,
+            undone before the launch.
   aa-fma, aa-sroll, aa-mxu  ``aa_corr`` on the +-1 lattice: the per-tap
             weights as they are (fma, summed one tap at a time), reversed
             inside each group of 8 (sroll) or spread over the
@@ -138,6 +139,7 @@ def _timed(res: dict, dev, kernel, plain, library, blocks, iters, trials):
 def run_im2col(dev, dtype: str, n_tiles: int, iters: int, trials: int) -> dict:
     import torch
 
+    from ..convert import sgemm_weights
     from ..wideband.channelizer import true_fp32
     from ..wideband.fused import filterbank_im2col, filterbank_im2col_reference
     from ._measure import BF16_FLOPS, FP32_FLOPS, bound_ms
@@ -153,6 +155,8 @@ def run_im2col(dev, dtype: str, n_tiles: int, iters: int, trials: int) -> dict:
         gk = torch.as_tensor(layout if variant == "copy" else reverse_chunks(layout),
                              device=dev).to(tdt)
         w = im2col_weights(gk)
+        if dtype == "f32":      # the FP32 kernel's (40, S, 80) layout
+            gk = sgemm_weights(gk)
         y = filterbank_im2col(frames[0], gk, WIDTH, n_cols, kind)
         res = {"checksum": checksums(y)}
         res["bound_ms"], res["bound_by"] = bound_ms(

@@ -5,10 +5,11 @@ Port of tools/dev_rollscale.py. The TPU tool measured the same total FMA
 work three ways — R = 40 rows and N = 65 unaligned slices, R = 80 and
 N = 33 (2 pre-shifted copies stacked), R = 160 and N = 17 (4 copies) —
 to learn whether Mosaic's lane rolls cost per op or per row (K3's
-POLYX_STACK question). On Hopper there is no roll: ``shift_fma`` stages
-the (R, 128 + STEP*(N-1)) frame tile in shared memory and reads the
-shifted slices from there, so the question becomes whether the time
-follows the bytes (R grows) or the FMAs (constant). Each configuration:
+POLYX_STACK question). On Hopper there is no roll: ``shift_fma`` streams
+the rows of 512 + STEP*(N-1)-column tiles through a cp.async ring in
+shared memory and reads the shifted slices from there, so the question
+becomes whether the time follows the bytes (R grows) or the FMAs
+(constant). Each configuration:
 
   out[c, k] = fold( sum_{j<N} f[r, k + STEP*j] * kc[r, j] ),  k < 64*2048
 

@@ -19,10 +19,13 @@ module:
        time-major, (J, 40) bf16, and at "f32x2" also their exact bf16
        hi/lo split, (2, J, 40), whose four products per term the kernel
        sums into one accumulator;
-     - ``"bf16"`` (im2col, im2colp, dots) and ``"f32"`` with im2col,
-       im2colp or dots: the same folded filterbank with the class's
-       weights and (40, J) frames on the CUDA cores
-       (``filterbank_im2col_*``, K5, one kernel templated on the class);
+     - ``"bf16"`` (im2col, im2colp, dots): the same folded filterbank
+       with the bf16 weights and (40, J) frames on the CUDA cores
+       (``filterbank_im2col(kind="bf16")``, K5, ``csrc/filterbank_im2col.cu``);
+     - ``"f32"`` with im2col, im2colp or dots: the same in true FP32 as a
+       CUDA-core SGEMM of the (40, J) frames and the (40, S, 80) table of
+       ``convert.sgemm_weights`` (``filterbank_im2col(kind="f32_im2col")``,
+       K5, ``csrc/filterbank_sgemm_f32.cu``);
      - ``"f32"`` with polyx (its default), poly or polyroll, and
        ``"bf16"`` with poly (the frames rounded to bf16, the taps exact):
        the stacked true-polyphase FMAs, then the 80x80 DFT, in true FP32
@@ -65,8 +68,9 @@ FILTERBANK_BF16X2W = CudaKernel("filterbank_bf16x2w",
                                 replaces="btle_tpu/wideband/fused.py:373")
 FILTERBANK_POLYX_F32 = CudaKernel("filterbank_polyx_f32",
                                   replaces="btle_tpu/wideband/fused.py:620")
-# K5: one kernel per numerics class ("bf16", "f32_im2col" in
-# filterbank_im2col.cu; "f32x2" the hi/lo template's second instance)
+# K5: one kernel per numerics class ("bf16" in filterbank_im2col.cu,
+# "f32_im2col" in filterbank_sgemm_f32.cu, "f32x2" the hi/lo template's
+# second instance)
 FILTERBANK_IM2COL = {
     kind: CudaKernel(f"filterbank_im2col_{cls}",
                      replaces="btle_tpu/wideband/fused.py:373")
@@ -289,6 +293,17 @@ def hilo_warps_m(ky: int, sms: int) -> int:
     return warps
 
 
+def sgemm_warps(ky: int, sms: int) -> int:
+    """The FP32 filterbank's column tile in 32-column warps (8, 4 or 2):
+    the widest whose grid still gives each of ``sms`` SMs a CTA (each CTA
+    streams all the weights, so wider is better while every SM has
+    work)."""
+    warps = 8
+    while warps > 2 and -(-ky // (32 * warps)) < sms:
+        warps //= 2
+    return warps
+
+
 def hilo_frames(f_t, n_cols: int, split: bool):
     """(40, J) float32 frames -> the tensor-core filterbank's time-major
     bf16 operand, zero past J up to ``n_cols`` rows: (n_cols, 40), or with
@@ -377,11 +392,16 @@ def filterbank_im2col_reference(frames, gk, width: int, ky: int, kind: str):
     (see ``filterbank_f32x2_reference`` for why)."""
     if kind == "f32x2":
         return filterbank_f32x2_reference(frames, gk, width, ky)
-    n_chunks, rows, cols = gk.shape
-    chunk = cols // (2 * D)
-    # W[o, i, c*chunk + j] = g[c, o, j*40 + i]
-    w = (gk.to(torch.float32).reshape(n_chunks, 2 * M, chunk, 2 * D).permute(1, 3, 0, 2)
-         .reshape(2 * M, 2 * D, n_chunks * chunk))
+    if kind == "f32_im2col":
+        # W[o, i, s] = T[i, s, o]; the table holds N_CHUNKS chunks of shifts
+        w = gk.permute(2, 0, 1)
+        chunk = gk.shape[1] // N_CHUNKS
+    else:
+        n_chunks, rows, cols = gk.shape
+        chunk = cols // (2 * D)
+        # W[o, i, c*chunk + j] = g[c, o, j*40 + i]
+        w = (gk.to(torch.float32).reshape(n_chunks, 2 * M, chunk, 2 * D)
+             .permute(1, 3, 0, 2).reshape(2 * M, 2 * D, n_chunks * chunk))
     x = frames.to(torch.float32)
     y = torch.zeros((2 * M, ky), dtype=torch.float32, device=frames.device)
     with true_fp32():
@@ -395,20 +415,32 @@ def filterbank_im2col_reference(frames, gk, width: int, ky: int, kind: str):
 def filterbank_im2col(frames, gk, width: int, ky: int, kind: str):
     """K5: the folded filterbank in numerics class ``kind`` — "bf16":
     (40, J) bf16 frames, (n_chunks, 80, chunk*40) bf16 weights;
-    "f32_im2col": (40, J) float32 frames and weights; "f32x2": the (2, J,
-    40) time-major [xhi; xlo] bf16 frames (``hilo_frames``) and the
-    (K_pad, 160) hi/lo weights, on the tensor-core template. Frames
-    zero-padded to at least ky + width - 1 columns -> y (80, ky)
-    float32."""
+    "f32_im2col": (40, J) float32 frames and the (40, S, 80) float32
+    table of ``convert.sgemm_weights`` (S = N_CHUNKS chunks of shifts,
+    at least ``width``); "f32x2": the (2, J, 40) time-major [xhi; xlo]
+    bf16 frames (``hilo_frames``) and the (K_pad, 160) hi/lo weights, on
+    the tensor-core template. Frames zero-padded to at least ky + width -
+    1 columns (the kernels read zeros past J) -> y (80, ky) float32."""
     if frames.device.type == "cpu":
         return filterbank_im2col_reference(frames, gk, width, ky, kind)
     kernel = FILTERBANK_IM2COL[kind]
     if kind == "f32x2":
         return _launch_hilo(kernel, frames, gk, width, ky, 2)
     _check_cuda(kernel.name, frames, gk)
-    dtype = torch.float32 if kind == "f32_im2col" else torch.bfloat16
+    if kind == "f32_im2col":
+        if (frames.dtype != torch.float32 or gk.dtype != torch.float32
+                or frames.ndim != 2 or frames.shape[0] != 2 * D
+                or gk.ndim != 3 or gk.shape[0] != 2 * D or gk.shape[2] != 2 * M
+                or gk.shape[1] < width or gk.data_ptr() % 16):
+            raise ValueError(f"{kernel.name}: bad dtypes or shapes "
+                             f"{tuple(frames.shape)} {frames.dtype}, "
+                             f"{tuple(gk.shape)} {gk.dtype}")
+        y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
+        kernel.launch(frames, gk, y, frames.shape[1], ky, gk.shape[1], width,
+                      sgemm_warps(ky, _sm_count(frames.device)))
+        return y
     n_chunks, rows, cols = gk.shape
-    if (frames.dtype != dtype or gk.dtype != dtype
+    if (frames.dtype != torch.bfloat16 or gk.dtype != torch.bfloat16
             or frames.shape[0] != 2 * D or rows != 2 * M
             or cols % (2 * D) or n_chunks * (cols // (2 * D)) < width):
         raise ValueError(f"{kernel.name}: bad dtypes or shapes "

@@ -9,7 +9,10 @@ JSON line per phase:
   0. device: torch version, card name and power limit, clocks (nvidia-smi);
   1. build: seconds to compile the kernels (one nvcc per source, in
      parallel) and each kernel's ptxas register / shared-memory report;
-     the tensor-core hi/lo filterbank (K1, K5 f32x2) must not spill;
+     the tensor-core hi/lo filterbank (K1, K5 f32x2), the FP32 SGEMM
+     filterbank (K5 f32) and shift_fma (K10) must not spill; the launch
+     shapes (dynamic shared memory, resident CTAs per SM, grid) of K5 f32
+     at bench geometry and of K10 at its three (R, N, STEP);
   2. kernels: each kernel against its plain PyTorch twin on the card, on
      one bench-geometry block with packets in it (131072 + 1476 channel
      samples, 1280-tap prototype, 16 candidate slots), the filterbank in
@@ -75,7 +78,8 @@ JSON line per phase:
      blocks (as bench.py), median Msps per CLI mode, the clocks right
      after; per-kernel time, its
      twin's time, the bound, and for each filterbank one cuDNN
-     convolution computing the same y as yardstick; K1 also at the live
+     convolution computing the same y as yardstick (K5 f32 and K10 also
+     with their CUDA-event trials and launch shapes); K1 also at the live
      block's shape (8192 + halo columns: its twin, ms, CTAs, bound,
      yardstick); the narrowband
      real-time factor (air seconds per wall second, median of 3 runs)
@@ -514,10 +518,13 @@ def filterbank_library_calls(operands) -> dict:
              for name in ("filterbank_bf16x2w", "filterbank_im2col_f32x2")}
     for name in ("filterbank_im2col_bf16", "filterbank_im2col_f32"):
         frames, gk, width = operands[name][0][:3]
-        n_chunks, rows, cols = gk.shape
-        fb_rows = frames.shape[0]
-        w = (gk.reshape(n_chunks, rows, cols // fb_rows, fb_rows).permute(1, 3, 0, 2)
-             .reshape(rows, fb_rows, -1)[:, :, :width].contiguous())
+        if name == "filterbank_im2col_f32":      # the (40, S, 80) table
+            w = gk.permute(2, 0, 1)[:, :, :width].contiguous()
+        else:
+            n_chunks, rows, cols = gk.shape
+            fb_rows = frames.shape[0]
+            w = (gk.reshape(n_chunks, rows, cols // fb_rows, fb_rows).permute(1, 3, 0, 2)
+                 .reshape(rows, fb_rows, -1)[:, :, :width].contiguous())
 
         def call(x=frames[None], w=w):
             with true_fp32():
@@ -600,6 +607,38 @@ def time_live_k1(dev) -> dict:
                            lambda: fused.filterbank_bf16x2w_reference(*fb), 50,
                            library=hilo_library_call(fb)),
             **hilo_bound(fb, 2)}
+
+
+# the sources whose ptxas report must show no spills: the tensor-core
+# filterbank (K1, K5 f32x2), the FP32 SGEMM filterbank (K5 f32) and K10
+NO_SPILL_SOURCES = ("filterbank_hilo_mma", "filterbank_sgemm_f32", "shift_fma")
+
+
+def launch_plans(dev) -> dict:
+    """The launch shapes of the redesigned CUDA-core kernels at the shapes
+    the timing phase gives them: dynamic shared memory, resident CTAs per
+    SM, grid, threads and columns per CTA (their sources' _plan entry)."""
+    import torch
+
+    from btle_tpu_torch.rx.pipeline import required_halo
+    from btle_tpu_torch.tools import _kernels as K
+    from btle_tpu_torch.tools import dev_rollscale
+    from btle_tpu_torch.wideband import fused
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ky = SCAN_LEN + required_halo(4, 4)     # the bench block's y columns
+    out = {"filterbank_im2col_f32": fused.FILTERBANK_IM2COL["f32_im2col"].plan(
+        ky, 65, fused.sgemm_warps(ky, sms))}
+    n_cols = dev_rollscale.N_TILES * dev_rollscale.T
+    for rows, n, step, _ in dev_rollscale.CONFIGS[:3]:
+        out[f"shift_fma R{rows}"] = K.SHIFT_FMA.plan(rows, n, step, n_cols, 1)
+    return out
+
+
+def event_trials(fn, reps: int, trials: int = 5) -> list:
+    """ms per call of ``fn``, CUDA events around ``reps`` calls, for each
+    of ``trials`` runs (the spread beside the profiler's device time)."""
+    return [cuda_time_ms(fn, reps, warm=1 if t else 2) for t in range(trials)]
 
 
 def zero_launches(kernels) -> None:
@@ -1524,6 +1563,10 @@ def time_kernels(operands, decode_args, library) -> dict:
                 + gk.numel() * gk.element_size() + 80 * ky * 4,
                 2 * 80 * 40 * width * ky, rate))),
         }
+        if kind == "f32_im2col":
+            out[name]["ms_trials"] = event_trials(lambda fb=fb: fused.filterbank_im2col(*fb), 10)
+            out[name]["plan"] = fused.FILTERBANK_IM2COL[kind].plan(
+                ky, width, fused.sgemm_warps(ky, fused._sm_count(frames.device)))
     fb, _, _ = operands["filterbank_polyx_f32"]
     f4, kcoefx, w4x, ky, _ = fb
     rows, n_slices = kcoefx.shape
@@ -1571,6 +1614,7 @@ def probe_kernel_entries(dev, probes) -> list:
     |kernel - twin| there, and its launches in that probe's run."""
     import torch
 
+    from btle_tpu_torch.convert import sgemm_weights
     from btle_tpu_torch.tools import _kernels as K
     from btle_tpu_torch.tools import (dev_aagrp_bisect, dev_aagrp_repro,
                                       dev_roll_experiment, dev_rollscale)
@@ -1628,9 +1672,12 @@ def probe_kernel_entries(dev, probes) -> list:
           library=matmul)
     d = (y_i[:, :nb] * y_q[:, 4: nb + 4] - y_i[:, 4: nb + 4] * y_q[:, :nb]) > 0
     dec = torch.as_tensor(d.astype(np.int8), device=dev)
+    # its yardstick: the grouped dilated convolution on the decisions as +-1
+    lat8 = torch.where(dec > 0, 1.0, -1.0)
     entry("K8", "aa-only", K.AA_CORR, "tools/dev_aagrp_bisect.py:265", "K8",
           lambda: K.aa_corr(dec, signs, 4, n_hit), lambda: K.aa_corr_reference(dec, signs, 4, n_hit),
-          50, dec.numel() + 40 * 32 * 4 + 40 * n_hit * 5, 2 * 40 * 32 * n_hit)
+          50, dec.numel() + 40 * 32 * 4 + 40 * n_hit * 5, 2 * 40 * 32 * n_hit,
+          library=grouped_conv(lat8, signs, 4, n_hit))
 
     # K9: the correlation and the stack
     s9, w4, _ = dev_aagrp_repro.make_inputs(8)
@@ -1657,6 +1704,9 @@ def probe_kernel_entries(dev, probes) -> list:
               4 * (f0.numel() + kc.numel() + 40 * n_cols), 2 * r * n * n_cols,
               library=lambda f0=f0, kc=kc, step=step: dev_rollscale.library_call(
                   f0, kc, n_cols, step))
+        entries[-1]["ms_trials"] = event_trials(
+            lambda f0=f0, kc=kc, step=step, grp=grp: K.shift_fma(f0, kc, n_cols, step, grp), 20)
+        entries[-1]["plan"] = K.shift_fma_plan(f0, kc, n_cols, step)
         del kc, fr, f0
 
     # K11: K5 on the tool's frames and G (f32 and bf16), the AA stage
@@ -1666,6 +1716,8 @@ def probe_kernel_entries(dev, probes) -> list:
         f11 = torch.as_tensor(frames_np[0], device=dev).to(dtype)
         gk = torch.as_tensor(g, device=dev).to(dtype)
         w11 = dev_roll_experiment.im2col_weights(gk)
+        if kind == "f32_im2col":       # the FP32 kernel's (40, 65, 80) table
+            gk = sgemm_weights(gk)
         args = (f11, gk, 65, n_cols, kind)
 
         def conv(f11=f11, w11=w11):
@@ -1677,6 +1729,11 @@ def probe_kernel_entries(dev, probes) -> list:
               lambda args=args: fused.filterbank_im2col_reference(*args), 10,
               f11.numel() * f11.element_size() + gk.numel() * gk.element_size()
               + 80 * n_cols * 4, 2 * 80 * 40 * 65 * n_cols, rate, library=conv)
+        if kind == "f32_im2col":
+            entries[-1]["ms_trials"] = event_trials(
+                lambda args=args: fused.filterbank_im2col(*args), 10)
+            entries[-1]["plan"] = fused.FILTERBANK_IM2COL[kind].plan(
+                n_cols, 65, fused.sgemm_warps(n_cols, fused._sm_count(f11.device)))
     l11 = torch.as_tensor(lat[0], device=dev)
     w11 = torch.as_tensor(tsign11, device=dev)
     entry("K11", "aa", K.AA_CORR, "tools/dev_roll_experiment.py:197", "K11 f32",
@@ -1719,11 +1776,12 @@ def main() -> int:
     ptxas = {n: [ln.strip() for ln in text.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, text in logs.items()}
-    log({"phase": "build", "seconds": seconds, "ptxas": ptxas})
-    spills = [ln for ln in ptxas.get("filterbank_hilo_mma", [])
+    log({"phase": "build", "seconds": seconds, "ptxas": ptxas,
+         "launch_plans": launch_plans(dev)})
+    spills = [f"{n}: {ln}" for n in NO_SPILL_SOURCES for ln in ptxas.get(n, [])
               if re.search(r"[1-9]\d* bytes spill", ln)]
     if spills:
-        raise AssertionError(f"the tensor-core filterbank spills: {spills}")
+        raise AssertionError(f"the redesigned kernels spill: {spills}")
 
     report, operands, decode_args, library, wb_operands = check_kernels(dev)
     nb_i, nb_q, nb_want = narrowband_scene()

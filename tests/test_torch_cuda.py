@@ -134,63 +134,87 @@ def test_every_mode_matches_twin(dev, dtype, inner, num_taps, cutoff, sps, lag,
     assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
 
 
-# the tensor-core hi/lo filterbank (K1, K5 f32x2) at the shapes the main
-# paths give it: label, num_taps, sps, lag, has_context, wideband samples
+# the filterbanks the redesigns gave register tiles and column tiles that
+# follow the grid — K1 and K5 at "f32x2" on the tensor cores, K5 at "f32"
+# (im2col) as a CUDA-core SGEMM — at the shapes the main paths give them:
+# label, num_taps, sps, lag, has_context, wideband samples
 HILO_CASES = [
     ("live", 1280, 4, 4, True, (8192 + 1476) * 20 + 1279),    # ~9668 columns
     ("tile128", 1280, 4, 4, True, 24_000 * 20 + 1279),
+    ("tile256", 1280, 4, 4, True, 40_000 * 20 + 1279),
     ("ragged", 1280, 4, 4, False, 100_003),
     ("sps2_lag1", 1280, 2, 1, False, 110_000),
     ("lag1_context", 1280, 4, 1, True, 60_000 + 1279),
     ("taps640", 640, 4, 4, True, 70_001),
 ]
+# filterbank kind -> (compute_dtype, inner, its column tile at ky on sms SMs)
+TILED_KINDS = {
+    "bf16x2w": ("bf16x2w", None, lambda ky, sms: 64 * fused.hilo_warps_m(ky, sms)),
+    "f32x2": ("f32x2", None, lambda ky, sms: 64 * fused.hilo_warps_m(ky, sms)),
+    "f32_im2col": ("f32", "im2col", lambda ky, sms: 32 * fused.sgemm_warps(ky, sms)),
+}
 
 
-@pytest.mark.parametrize("label,num_taps,sps,lag,ctx,n", HILO_CASES)
-@pytest.mark.parametrize("dtype", ["bf16x2w", "f32x2"])
-def test_hilo_kernels_match_twin(dev, dtype, label, num_taps, sps, lag, ctx, n):
-    """K1 and K5 at "f32x2" on the tensor cores against their twins: max
-    |dy| within 1e-5 of max |y|, one launch, at the live block's shape,
-    at each column tile (64, 128, 256 columns), at a ky no tile divides,
-    at sps 2 / lag 1, with filter context and at 640 taps."""
-    wi, wq = _scene(n % 1000, phy="2m" if sps == 2 else "1m", n=n)
+def _tiled_operands(dev, kind, num_taps, sps, lag, ctx, n, seed):
+    wi, wq = _scene(seed, phy="2m" if sps == 2 else "1m", n=n)
     xi, xq = torch.as_tensor(wi, device=dev), torch.as_tensor(wq, device=dev)
     aa = torch.as_tensor(B.hex_to_bits("d6be898e"), device=dev)
     mask = torch.ones(32, dtype=torch.int8, device=dev)
+    dtype, inner, _ = TILED_KINDS[kind]
     fb_args, _ = fused.frontend_operands(xi, xq, aa, mask, num_taps, ctx, sps,
-                                         lag, dtype, 1.0, dev)
+                                         lag, dtype, 1.0, dev, inner)
+    return fb_args
+
+
+@pytest.mark.parametrize("label,num_taps,sps,lag,ctx,n", HILO_CASES)
+@pytest.mark.parametrize("dtype", sorted(TILED_KINDS))
+def test_hilo_kernels_match_twin(dev, dtype, label, num_taps, sps, lag, ctx, n):
+    """K1 and K5 at "f32x2" on the tensor cores, and K5 at "f32" on the
+    CUDA cores, against their twins: max |dy| within 1e-5 of max |y|, one
+    launch, at the live block's shape, at each column tile (64, 128, 256
+    columns), at a ky no tile divides, at sps 2 / lag 1, with filter
+    context and at 640 taps."""
+    fb_args = _tiled_operands(dev, dtype, num_taps, sps, lag, ctx, n, n % 1000)
     ky = fb_args[3]
     counter = (fused.FILTERBANK_BF16X2W if dtype == "bf16x2w"
-               else fused.FILTERBANK_IM2COL["f32x2"])
+               else fused.FILTERBANK_IM2COL[dtype])
     kern, twin = fused.FILTERBANKS[dtype]
     before = counter.launches
     y, y_ref = kern(*fb_args), twin(*fb_args)
     assert counter.launches == before + 1
     assert y.shape == (80, ky) and bool(torch.isfinite(y).all())
     assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = TILED_KINDS[dtype][2](ky, sms)
+    assert tile == {"live": 64, "tile128": 128, "tile256": 256}.get(label, tile)
     if label == "ragged":
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        assert ky % (64 * fused.hilo_warps_m(ky, sms))
+        assert ky % tile
 
 
-@pytest.mark.parametrize("dtype", ["bf16x2w", "f32x2"])
+@pytest.mark.parametrize("dtype", sorted(TILED_KINDS))
 def test_hilo_kernels_zero_frames_past_j(dev, dtype):
-    """Frames shorter than ky + width - 1 rows: the kernel reads zeros
+    """Frames shorter than ky + width - 1 columns: the kernel reads zeros
     past J, as the twin does on the zero-padded frames."""
-    wi, wq = _scene(5, n=40_000)
-    xi, xq = torch.as_tensor(wi, device=dev), torch.as_tensor(wq, device=dev)
-    aa = torch.as_tensor(B.hex_to_bits("d6be898e"), device=dev)
-    mask = torch.ones(32, dtype=torch.int8, device=dev)
-    fb_args, _ = fused.frontend_operands(xi, xq, aa, mask, 1280, False, 4, 4,
-                                         dtype, 1.0, dev)
+    fb_args = _tiled_operands(dev, dtype, 1280, 4, 4, False, 40_000, 5)
     frames, rest = fb_args[0], fb_args[1:]
-    cut = frames.shape[-2] - 700
-    short = frames[..., :cut, :].contiguous()
+    axis = frames.ndim - (1 if dtype == "f32_im2col" else 2)   # the column axis
+    cut = frames.shape[axis] - 700
+    short = frames.narrow(axis, 0, cut).contiguous()
     padded = torch.zeros_like(frames)
-    padded[..., :cut, :] = short
+    padded.narrow(axis, 0, cut).copy_(short)
     kern, twin = fused.FILTERBANKS[dtype]
     y, y_ref = kern(short, *rest), twin(padded, *rest)
     assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
+
+
+def test_f32_sgemm_plan_keeps_16_warps(dev):
+    """K5 at "f32" at bench geometry: 256-column CTAs of 8 warps, two
+    resident per SM."""
+    ky = 131_072 + 1476          # the bench block's y columns
+    warps = fused.sgemm_warps(ky, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = fused.FILTERBANK_IM2COL["f32_im2col"].plan(ky, 65, warps)
+    assert plan["tile_columns"] == 256 and plan["threads"] == 256
+    assert plan["ctas_per_sm"] * plan["threads"] >= 16 * 32
 
 
 @pytest.mark.parametrize("label,cfg,expected", knobmatrix.config_matrix())
@@ -541,22 +565,35 @@ def test_shift_stack_matches_twin(dev, grp, sps, k0):
     assert torch.equal(got.cpu(), shift_stack_reference(s, grp, sps, k0))
 
 
+@pytest.mark.parametrize("n_cols,pad,copy_bytes", [
+    (4 * 2048 + 77, 5, 4),       # ragged tile, row stride not a multiple of 4 floats
+    (4 * 2048 + 76, 4, 16),      # row stride 16-byte aligned: 16-byte copies
+    (1000, 0, 16),               # one partial tile, the frames just long enough
+])
 @pytest.mark.parametrize("rows,n,step,grp", [(40, 65, 2, 8), (80, 33, 4, 8),
                                              (160, 17, 8, 4)])
-def test_shift_fma_matches_twin(dev, rows, n, step, grp):
+def test_shift_fma_matches_twin(dev, rows, n, step, grp, n_cols, pad, copy_bytes):
     """Within 1e-5 of max |out|: the same products summed in another
     order (the kernel one FMA per tap in j order, the twin the tool's
-    groups)."""
-    from btle_tpu_torch.tools._kernels import shift_fma, shift_fma_reference
+    groups), at an n_cols no 512-column tile divides, with 4- and
+    16-byte row copies; 16 resident warps per SM."""
+    from btle_tpu_torch.tools._kernels import (SHIFT_FMA, shift_fma, shift_fma_plan,
+                                               shift_fma_reference)
 
     gen = torch.Generator(device=dev).manual_seed(rows)
-    n_cols = 4 * 2048 + 77
-    f = torch.randn((rows, n_cols + step * (n - 1) + 5), generator=gen, device=dev)
+    f = torch.randn((rows, n_cols + step * (n - 1) + pad), generator=gen, device=dev)
     kc = torch.randn((rows, n), generator=gen, device=dev)
+    plan = shift_fma_plan(f, kc, n_cols, step)
+    assert plan["copy_bytes"] == copy_bytes and plan["tile_columns"] == 512
+    assert plan["ctas_per_sm"] * plan["threads"] >= 16 * 32
+    before = SHIFT_FMA.launches
     got = shift_fma(f, kc, n_cols, step, grp)
     want = shift_fma_reference(f, kc, n_cols, step, grp)
     torch.cuda.synchronize()
+    assert SHIFT_FMA.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(ValueError):
+        shift_fma(f, kc, n_cols, 3, grp)
 
 
 def test_polyx_at_80_rows_is_a_true_fp32_product(dev):

@@ -229,3 +229,52 @@ def test_time_major_frames_match_frame_rows(dtype, has_context):
         assert torch.equal(frames[:j], hi)
         tail = frames[j:]
     assert frames.dtype == torch.bfloat16 and not bool(tail.any())
+
+
+@pytest.mark.parametrize("ky,sms,warps", [(131_075, 132, 8), (9668, 132, 2),
+                                          (25_000, 132, 4), (40_000, 132, 8),
+                                          (33_000, 132, 4), (100, 132, 2), (5000, 8, 8)])
+def test_sgemm_tile_follows_the_grid(ky, sms, warps):
+    """K5 at "f32" takes the widest column tile (8, 4 or 2 warps of 32
+    columns) whose grid still gives every SM a CTA, and 2 warps at
+    least."""
+    from btle_tpu_torch.wideband.fused import sgemm_warps
+
+    got = sgemm_warps(ky, sms)
+    assert got == warps
+    assert got == 2 or -(-ky // (32 * got)) >= sms
+    assert got == 8 or -(-ky // (64 * got)) < sms
+
+
+@pytest.mark.parametrize("inner", ["im2col", "im2colp", "dots"])
+def test_f32_im2col_operands_are_the_sgemm_table(inner):
+    """frontend_operands at "f32" with an im2col-form inner hands K5 the
+    (40, ky + width - 1) float32 frames, zero past J, and the (40, S, 80)
+    table of convert.sgemm_weights; the twin on them gives the chunked
+    true-FP32 sums of the JAX package's _g_chunks."""
+    from btle_tpu.wideband.fused import _g_chunks as jg_chunks
+
+    from btle_tpu_torch.convert import sgemm_weights
+    from btle_tpu_torch.wideband.channelizer import frame_rows
+    from btle_tpu_torch.wideband.fused import filterbank_im2col, frontend_operands
+
+    wi, wq = _scene(8, n=30011)
+    aa_rows, mask, *_ = _tables()
+    fb_args, _ = frontend_operands(wi, wq, aa_rows, mask, 640, True, 4, 4, "f32",
+                                   1.0, torch.device("cpu"), inner)
+    frames, table, width, ky, kind = fb_args
+    assert kind == "f32_im2col" and frames.dtype == torch.float32
+    assert tuple(frames.shape) == (40, ky + width - 1) and frames.is_contiguous()
+    f_t = frame_rows(torch.as_tensor(wi), torch.as_tensor(wq), 640, True)
+    assert torch.equal(frames[:, : f_t.shape[1]], f_t)
+    assert not bool(frames[:, f_t.shape[1]:].any())
+    assert torch.equal(table, sgemm_weights(jg_chunks(640)))
+    g = jg_chunks(640).astype(np.float64)
+    chunk = g.shape[2] // 40
+    want = np.zeros((80, ky))
+    f64 = frames.numpy().astype(np.float64)
+    for s in range(width):
+        c, j = divmod(s, chunk)
+        want += g[c][:, j * 40:(j + 1) * 40] @ f64[:, s: s + ky]
+    y = filterbank_im2col(*fb_args).numpy()
+    assert np.abs(y - want).max() <= 1e-5 * np.abs(want).max()

@@ -49,6 +49,7 @@ PORT_MODULES = [
     "btle_tpu_torch.tools.dev_aagrp_repro",
     "btle_tpu_torch.tools.dev_roll_experiment",
     "btle_tpu_torch.tools.dev_rollscale",
+    "btle_tpu_torch.tools.kernel_ab",
     "btle_tpu_torch.tx",
     "btle_tpu_torch.tx.descriptor",
     "btle_tpu_torch.tx.playback",

@@ -239,11 +239,12 @@ def test_k10_probe_runs():
 
 
 def test_k11_twins_against_float64_bodies():
+    from btle_tpu_torch.convert import sgemm_weights
     from btle_tpu_torch.wideband.fused import filterbank_im2col
 
     g, frames, tsign, lat = dev_roll_experiment.make_inputs(1)
     n_cols = dev_roll_experiment.T
-    y = filterbank_im2col(torch.as_tensor(frames[0]), torch.as_tensor(g), 65,
+    y = filterbank_im2col(torch.as_tensor(frames[0]), sgemm_weights(g), 65,
                           n_cols, "f32_im2col").numpy()
     want = np.zeros((80, n_cols))
     f64 = frames[0].astype(np.float64)

@@ -99,7 +99,9 @@ def test_golden_copies_equal(channel, phy):
 
 GOLDEN_COPIES = ["gauss_fir", "sin_cos_tables", "c_flavor_pulse", "c_flavor_taps",
                  "gfsk_modulate_python", "gfsk_modulate_float", "gfsk_modulate_c",
-                 "_c_tables", "assemble_phy_bits"]
+                 "_c_tables", "assemble_phy_bits", "btle_tx", "demod_symbol_lag",
+                 "search_bit_sequence", "GoldenRxResult", "btle_rx",
+                 "add_freq_sampling_error", "add_noise"]
 
 
 @pytest.mark.parametrize("name", GOLDEN_COPIES)
@@ -110,6 +112,20 @@ def test_golden_functions_are_copies(name):
 
     assert (ast.dump(ast.parse(inspect.getsource(getattr(G, name))))
             == ast.dump(ast.parse(inspect.getsource(getattr(tG, name)))))
+
+
+@pytest.mark.parametrize("name", ["deinterleave", "ring_source"])
+def test_runtime_functions_are_copies(name):
+    """The runtime helpers the port copies (numpy and ctypes around the
+    byte-equal runtime.cpp) have the original's code."""
+    import ast
+    import inspect
+
+    from btle_tpu import runtime as jrt
+    from btle_tpu_torch import runtime as trt
+
+    assert (ast.dump(ast.parse(inspect.getsource(getattr(jrt, name))))
+            == ast.dump(ast.parse(inspect.getsource(getattr(trt, name)))))
 
 
 @pytest.mark.parametrize("sps", [4, 8])
@@ -223,13 +239,26 @@ def test_convert_filter_tables_round_trip(num_taps):
             "bf16x2w", (jfused._g_chunks(num_taps),), "cpu")
 
 
+def _sgemm_mapping(g):
+    """T[i, s, o] = G[s // chunk][o, (s % chunk)*40 + i], element by
+    element: the FP32 filterbank's (40, S, 80) weight layout."""
+    n_chunks, rows, cols = g.shape
+    chunk = cols // 40
+    want = np.zeros((40, n_chunks * chunk, rows), np.float32)
+    for s in range(n_chunks * chunk):
+        c, j = divmod(s, chunk)
+        for i in range(40):
+            want[i, s, :] = g[c, :, j * 40 + i]
+    return want
+
+
 @pytest.mark.parametrize("num_taps", [640, 1280])
 def test_k5_device_tables_equal_jax(num_taps):
     """The weights K5 runs on, per numerics class, are the JAX package's
     at that class: _g_chunks rounded to bf16 ("bf16", as jnp.asarray casts
     it), _g_chunks_x2 with its duplicated columns dropped, in the
-    tensor-core B layout ("f32x2"), and _g_chunks ("f32" im2col),
-    exactly."""
+    tensor-core B layout ("f32x2"), and _g_chunks in the FP32 kernel's
+    (40, S, 80) layout ("f32" im2col), exactly."""
     import jax.numpy as jnp
 
     dev = torch.device("cpu")
@@ -243,8 +272,8 @@ def test_k5_device_tables_equal_jax(num_taps):
     assert np.array_equal(x2.to(torch.float32).numpy(),
                           _hilo_mapping(jfused._g_chunks_hilo(num_taps)))
     (f32,) = tfused._device_tables("f32_im2col", num_taps, 1.0, dev)
-    assert f32.dtype == torch.float32
-    assert np.array_equal(f32.numpy(), jfused._g_chunks(num_taps))
+    assert f32.dtype == torch.float32 and f32.is_contiguous()
+    assert np.array_equal(f32.numpy(), _sgemm_mapping(jfused._g_chunks(num_taps)))
     with pytest.raises(ValueError):
         convert.filter_tables_from_numpy("f32x2", (jfused._g_chunks(num_taps),), dev)
 
@@ -305,3 +334,33 @@ def test_f32x2_table_with_differing_copies_is_refused(num_taps):
         convert.filter_tables_from_numpy("f32x2", (bad,), "cpu")
     with pytest.raises(ValueError):
         convert.filter_tables_from_numpy("f32x2", (bad[:, :, :-40],), "cpu")
+
+
+@pytest.mark.parametrize("num_taps", HILO_TAPS)
+def test_sgemm_weight_layout_is_the_mapping(num_taps):
+    """convert.sgemm_weights of the JAX package's _g_chunks equals the
+    mapping element by element, numpy or tensor in; the twin on it
+    equals the twin on the im2col chunks (the same per-chunk sums), and
+    a table that is not an im2col one is refused."""
+    g = jfused._g_chunks(num_taps)
+    want = _sgemm_mapping(g)
+    for src in (g, torch.as_tensor(g)):
+        t = convert.sgemm_weights(src)
+        assert t.dtype == torch.float32 and t.is_contiguous()
+        assert np.array_equal(t.numpy(), want)
+    width = jfused._g_stack(num_taps).shape[0]
+    frames = torch.as_tensor(np.random.default_rng(num_taps).normal(
+        0, 3, (40, 700 + width - 1)).astype(np.float32))
+    y = tfused.filterbank_im2col_reference(frames, convert.sgemm_weights(g), width, 700,
+                                           "f32_im2col")
+    w = torch.as_tensor(want).permute(2, 0, 1)
+    chunk = g.shape[2] // 40
+    ref = torch.zeros((80, 700))
+    with tch.true_fp32():
+        for s0 in range(0, width, chunk):
+            s1 = min(s0 + chunk, width)
+            ref += torch.nn.functional.conv1d(frames[None, :, s0: s1 + 699],
+                                              w[:, :, s0:s1].contiguous())[0]
+    assert torch.equal(y, ref)
+    with pytest.raises(ValueError):
+        convert.sgemm_weights(g[:, :40])

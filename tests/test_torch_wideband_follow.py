@@ -206,3 +206,134 @@ def test_follow_matches_jax_fused(scenes, scene):
     _, got, events = _port(wi, wq, mf, "f32")
     assert got == ref and events == ref_events
     assert sum(p[3] for p in got) >= 2
+
+
+# --------------------------------------------------------------------------
+# dense multi-follow and LE 2M following
+# --------------------------------------------------------------------------
+
+
+DENSE_HOPS = [5, 6, 7, 8, 10, 11, 12, 13, 14, 15, 9, 9, 16]
+
+
+def _dense_aa(j):
+    return 0x53A00000 + j * 0x01101
+
+
+def _dense_crc(j):
+    return f"{0x111111 + j * 0x030201:06x}"
+
+
+def scene_dense(rng):
+    """test_multifollow.py::TestDenseMultiFollow's scene: 13 CONNECT_REQs
+    in block 0; ten regular connections, A and B on the same first hop
+    (channel 9, a collision), L at interval 8 that never sends data (a
+    stale drop that frees channel 16); sync packets on each connection's
+    first hop, then on its second after the re-key tick. Returns the
+    wideband samples and the expected (channel, PDU, access address)."""
+    intervals = [16] * 12 + [8]
+    cr_ch = [[37, 38, 39][j % 3] for j in range(10)] + [39, 38, 37]
+    cr_t = [200 + (j // 3) * 450 for j in range(13)]
+    placements, expected = [], []
+
+    def place(ch, t_us, pdu_bits, crc_hex="555555", aa_hex="d6be898e"):
+        si, sq = _air(pdu_bits, ch, crc_hex, aa_hex)
+        placements.append((ch, t_us * 80, si.astype(np.float32), sq.astype(np.float32)))
+
+    for j in range(13):
+        cr = connect_req_pdu_bytes(_dense_aa(j), _dense_crc(j), DENSE_HOPS[j], intervals[j])
+        place(cr_ch[j], cr_t[j], B.bytes_to_bits(cr))
+        expected.append((cr_ch[j], bytes(cr), 0x8E89BED6))
+
+    def place_data(j, ch, t_us):
+        payload = rng.integers(0, 256, 8 + j % 5, dtype=np.uint8)
+        pdu = np.concatenate([[0x01, len(payload)], payload]).astype(np.uint8)
+        place(ch, t_us, B.bytes_to_bits(pdu), _dense_crc(j), _aa_hex(_dense_aa(j)))
+        expected.append((ch, bytes(pdu), _dense_aa(j)))
+
+    for j in range(11):
+        place_data(j, DENSE_HOPS[j] % 37, 8300 + j * 50)
+    for j in range(11):
+        place_data(j, (2 * DENSE_HOPS[j]) % 37, 24700 + j * 50)
+    place_data(11, 9, 24000)
+    n_wb = 29000 * 80
+    wi, wq = compose_wideband(placements, n_wb)
+    wi += rng.normal(0, 0.01, n_wb).astype(np.float32)
+    wq += rng.normal(0, 0.01, n_wb).astype(np.float32)
+    return wi, wq, expected
+
+
+def scene_2m(rng):
+    """LE 2M following: CONNECT_REQs for AA_1 (hop 9) and AA_2 (hop 7) on
+    37 and 38, then a data packet of each on its first hop channel (9, 7)
+    and, after the re-key tick, on its second (18, 14)."""
+    placements = []
+
+    def place(ch, t_us, pdu_bits, crc_hex="555555", aa_hex="d6be898e"):
+        phy = G.assemble_phy_bits(pdu_bits, ch, crc_init_hex=crc_hex,
+                                  access_address_hex=aa_hex, phy="2m")
+        si, sq = G.gfsk_modulate_float(phy, 40)
+        placements.append((ch, t_us * 80, si.astype(np.float32), sq.astype(np.float32)))
+
+    for aa, crc, hop, ch, t in ((AA_1, CRC_1, 9, 37, 200), (AA_2, CRC_2, 7, 38, 700)):
+        place(ch, t, B.bytes_to_bits(connect_req_pdu_bytes(aa, crc, hop, 16)))
+        place(hop, 8300 + hop * 20, _data_bits(rng, 10), crc, _aa_hex(aa))
+        place(2 * hop, 24700 + hop * 20, _data_bits(rng, 12), crc, _aa_hex(aa))
+    n_wb = 29000 * 80
+    wi, wq = compose_wideband(placements, n_wb)
+    wi += rng.normal(0, 0.01, n_wb).astype(np.float32)
+    wq += rng.normal(0, 0.01, n_wb).astype(np.float32)
+    return wi, wq
+
+
+@pytest.fixture(scope="module")
+def dense():
+    wi, wq, expected = scene_dense(np.random.default_rng(0))
+    kw = dict(max_follow=16, drop_after_intervals=2)
+    sn, pkts, events = _run(JSniffer, JConfig, wi, wq, **kw)
+    return wi, wq, expected, (pkts, events, set(sn.multi_follower.connections))
+
+
+@pytest.mark.parametrize("mode", ["plain", "f32"])
+def test_dense_multi_follow_matches_jax(dense, mode):
+    """13 connections, a same-hop channel collision, a stale drop, max_follow
+    16: the packet list, hop events and connection set equal the JAX
+    package's, and every injected packet decodes under its access address."""
+    from btle_tpu_torch.wideband.channelizer import channel_to_bin
+
+    wi, wq, expected, (ref, ref_events, ref_conns) = dense
+    kw = {} if mode == "plain" else dict(fused=True, fused_dtype=mode)
+    sn, got, events = _run(lambda cfg: WidebandSniffer(cfg, device="cpu"), WidebandConfig,
+                           wi, wq, 16, drop_after_intervals=2, **kw)
+    assert got == ref and events == ref_events
+    f = sn.multi_follower
+    assert set(f.connections) == ref_conns == {_dense_aa(j) for j in range(12)}
+    decoded = {(p[0], p[4]): p[5] for p in got if p[3]}
+    for ch, pdu, aa in expected:
+        assert decoded.get((ch, pdu)) == aa, (ch, pdu.hex())
+    assert [e.access_addr for e in f.events if e.event == "track_drop"] == [_dense_aa(12)]
+    assert f._owners[channel_to_bin(9)] == _dense_aa(11)
+    assert f._owners[channel_to_bin(18)] == _dense_aa(10)
+    assert f._owners[channel_to_bin(16)] == _dense_aa(3)
+
+
+@pytest.fixture(scope="module")
+def scene_2m_runs():
+    wi, wq = scene_2m(np.random.default_rng(21))
+    return wi, wq, {mf: _run(JSniffer, JConfig, wi, wq, mf, phy="2m")[1:]
+                    for mf in (1, 4)}
+
+
+@pytest.mark.parametrize("mode", ["plain", "f32"])
+@pytest.mark.parametrize("max_follow", [1, 4])
+def test_2m_follow_matches_jax(scene_2m_runs, max_follow, mode):
+    """LE 2M: two CONNECT_REQs, then data on each connection's first and
+    second hop channels; followed with 1 and 4 connections, the packets
+    and hop events equal the JAX package's."""
+    wi, wq, ref = scene_2m_runs
+    kw = {} if mode == "plain" else dict(fused=True, fused_dtype=mode)
+    _, got, events = _run(lambda cfg: WidebandSniffer(cfg, device="cpu"), WidebandConfig,
+                          wi, wq, max_follow, phy="2m", **kw)
+    assert (got, events) == ref[max_follow]
+    channels = {p[0] for p in got if p[3]}
+    assert channels == ({37, 38, 9, 18} if max_follow == 1 else {37, 38, 9, 7, 18, 14})
