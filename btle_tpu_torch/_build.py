@@ -37,10 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes argument kinds of each C entry point, in order: "p" a device
 # pointer or the stream (c_void_p), "i" a 32-bit int, "l" a 64-bit int
 _SIGNATURES = {
-    # frames, hi/lo weights, y, J, Ky, K_pad, warps_m, stream
+    # frames, B table (hi/lo or bf16), y, J, Ky, K_pad, warps_m, stream
     "filterbank_bf16x2w": "pppliiip",
     "filterbank_im2col_f32x2": "pppliiip",
-    # frames, weights, y, J, Ky, chunk, width, stream
     "filterbank_im2col_bf16": "pppliiip",
     # frames, (40, S, 80) weights, y, J, Ky, S, width, warps, stream
     "filterbank_im2col_f32": "pppliiiip",
@@ -73,7 +72,7 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
 # the source of each entry point not named as its source
 _SOURCES = {"filterbank_bf16x2w": "filterbank_hilo_mma",
             "filterbank_im2col_f32x2": "filterbank_hilo_mma",
-            "filterbank_im2col_bf16": "filterbank_im2col",
+            "filterbank_im2col_bf16": "filterbank_hilo_mma",
             "filterbank_im2col_f32": "filterbank_sgemm_f32",
             "shift_stack": "aa_corr"}
 
@@ -115,15 +114,15 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=None) -> dict[str, str]:
+def build(names=None, force: bool = False) -> dict[str, str]:
     """Compile the sources of the named kernels (default: all) whose
-    library is missing, one nvcc per source, all started together.
-    Returns {source: compiler output} for the sources compiled now
-    (ptxas register/shared-memory reports); raises naming every source
-    that failed."""
+    library is missing (with ``force``, every one), one nvcc per source,
+    all started together. Returns {source: compiler output} for the
+    sources compiled now (ptxas register/shared-memory reports); raises
+    naming every source that failed."""
     names = sorted({source_of(n) for n in
                     (_SIGNATURES if names is None else names)})
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in names if force or not library_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -31,9 +31,22 @@ def scan_tables_from_numpy(aa_rows, aa_mask, whiten_rows, crc_inits,
             torch.tensor(np.asarray(adv_flags, bool), device=dev))
 
 
-# K rows of the hi/lo weight table come in multiples of the tensor-core
-# kernel's pipeline stage (csrc/filterbank_hilo_mma.cu kKS)
+# K rows of the tensor-core B tables come in multiples of the kernel's
+# pipeline stage (csrc/filterbank_hilo_mma.cu kKS)
 HILO_K_ALIGN = 64
+
+
+def _b_operand(gk: torch.Tensor) -> torch.Tensor:
+    """(n_chunks, rows, chunk*40) bf16 im2col weights -> the (K_pad, rows)
+    B operand: B[s*40 + i, o] = G[s][o, i] for s < n_chunks*chunk, zero
+    rows up to K_pad, the next multiple of HILO_K_ALIGN."""
+    n_chunks, rows, cols = gk.shape
+    k = n_chunks * cols
+    b = torch.zeros((-(-k // HILO_K_ALIGN) * HILO_K_ALIGN, rows), dtype=torch.bfloat16,
+                    device=gk.device)
+    # gk[c, o, j*40 + i] is shift s = c*chunk + j: row s*40 + i of B
+    b[:k] = gk.reshape(n_chunks, rows, cols // 40, 40).permute(0, 2, 3, 1).reshape(k, rows)
+    return b
 
 
 def hilo_weights(g_chunks_hilo) -> torch.Tensor:
@@ -50,11 +63,20 @@ def hilo_weights(g_chunks_hilo) -> torch.Tensor:
     out = gk.to(torch.bfloat16)
     if not torch.equal(out.to(torch.float32), gk):
         raise ValueError("hi/lo weights are not bf16-representable")
-    k = n_chunks * cols
-    b = torch.zeros((-(-k // HILO_K_ALIGN) * HILO_K_ALIGN, rows), dtype=torch.bfloat16)
-    # gk[c, o, j*40 + i] is shift s = c*chunk + j: row s*40 + i of B
-    b[:k] = out.reshape(n_chunks, rows, cols // 40, 40).permute(0, 2, 3, 1).reshape(k, rows)
-    return b
+    return _b_operand(out)
+
+
+def bf16_weights(g_chunks) -> torch.Tensor:
+    """The (n_chunks, 80, chunk*40) im2col weights -> the (K_pad, 80) bf16
+    B operand of the tensor-core filterbank at "bf16": B[s*40 + i, o] =
+    bf16(G[s][o, i]) (float32 -> bf16, round to nearest even, as the JAX
+    package casts them), zero rows up to K_pad, the next multiple of
+    HILO_K_ALIGN. Takes a numpy array or a tensor (kept on its device)."""
+    gk = torch.as_tensor(g_chunks)
+    n_chunks, rows, cols = gk.shape
+    if rows != 80 or cols % 40:
+        raise ValueError(f"not an im2col weight table: {tuple(gk.shape)}")
+    return _b_operand(gk.to(torch.float32).to(torch.bfloat16))
 
 
 def sgemm_weights(g_chunks) -> torch.Tensor:
@@ -86,7 +108,8 @@ def filter_tables_from_numpy(kind: str, tables, device):
                     checked equal and dropped, leaving the bf16x2w pair ->
                     the same (K_pad, 160) B operand;
       "bf16":       (g_chunks,) — rounded to bf16 (round to nearest even),
-                    as the JAX package casts it;
+                    as the JAX package casts it, in the (K_pad, 80) B
+                    layout -> (bf16_weights(g_chunks),);
       "f32_im2col": (g_chunks,) -> (sgemm_weights(g_chunks),), float32;
       "f32", "bf16_poly": (perm, kcoefx, w4x[, n_slices]) of _polyx_tables
                     — the frame-row gather as int64, the stacked taps and
@@ -108,8 +131,7 @@ def filter_tables_from_numpy(kind: str, tables, device):
         return (hilo_weights(pairs[:, :, :, 0].reshape(n, rows, cols // 2)).to(dev),)
     if kind == "bf16":
         (gk,) = tables
-        gk = torch.as_tensor(np.asarray(gk, np.float32))
-        return (gk.to(torch.bfloat16).to(dev).contiguous(),)
+        return (bf16_weights(np.asarray(gk, np.float32)).to(dev),)
     if kind == "f32_im2col":
         (gk,) = tables
         return (sgemm_weights(np.asarray(gk, np.float32)).to(dev),)

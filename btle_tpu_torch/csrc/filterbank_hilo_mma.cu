@@ -1,17 +1,23 @@
-// Tensor-core filterbank of the exact bf16 hi/lo weight pair: the "bf16x2w"
-// class (K1, the shipped default) and the "f32x2" class (K5 at "f32x2").
+// Tensor-core filterbank: the "bf16x2w" class (K1, the shipped default) and
+// the "f32x2" class (K5 at "f32x2") on the exact bf16 hi/lo weight pair, and
+// the "bf16" class (K5 at "bf16") on the bf16 weights.
 //
 // Replaces the TPU kernel body btle_tpu/wideband/fused.py:373 _kernel with
-// the "im2col" inner at compute_dtype "bf16x2w" and at "f32x2". Both
-// compute the 40-channel baseband before the demod tail,
-//   y[o, k] = sum_{s < width} sum_{i < 40} (Ghi + Glo)[s][o, i] * X[i, k + s]
+// the "im2col" inner at compute_dtype "bf16x2w", "f32x2" and "bf16" (there
+// also its "im2colp" and "dots" inners, and the bf16 im2col of
+// tools/dev_roll_experiment.py:60). All compute the 40-channel baseband
+// before the demod tail,
+//   y[o, k] = sum_{s < width} sum_{i < 40} G[s][o, i] * X[i, k + s]
 // for o < 80 (rows 0..39 = y_i bins, 40..79 = y_q bins) and k < Ky, as a sum
 // of exact bf16 x bf16 products in f32:
-//   bf16x2w: X the bf16 frames, two products per term (hi*x, lo*x);
-//   f32x2:   X = xhi + xlo, the exact bf16 split of the f32 frames, four
-//            products per term (each weight fragment meets both).
+//   bf16x2w: G = Ghi + Glo, X the bf16 frames, two products per term (hi*x,
+//            lo*x);
+//   f32x2:   G = Ghi + Glo, X = xhi + xlo, the exact bf16 split of the f32
+//            frames, four products per term (each weight fragment meets
+//            both);
+//   bf16:    G = bf16(G), X the bf16 frames, one product per term.
 //
-// GEMM orientation: y^T (Ky x 160) = A (Ky x K) . B (K x 160), K = 40 * shifts.
+// GEMM orientation: y^T (Ky x kN) = A (Ky x K) . B (K x kN), K = 40 * shifts.
 //   A, the frames: staged time-major in shared memory, Ft[col][i] (one
 //     80-byte row of 40 bf16 per column), so row k of the im2col operand is
 //     the contiguous span Ft[k .. k + shifts - 1][0..39]: A[k][kk] =
@@ -22,27 +28,34 @@
 //     The frame prep (wideband/fused.py frontend_operands) writes the
 //     frames time-major, (J, 40) bf16, or (2, J, 40) [xhi; xlo] at f32x2,
 //     so each CTA's tile is one contiguous span copied with cp.async.
-//   B, the weights: the (K_pad, 160) bf16 table of convert.py
-//     (hilo_weights), B[s*40 + i][o] = Ghi[s][o, i], B[s*40 + i][80 + o] =
-//     Glo[s][o, i], zero rows up to a multiple of 64. K-slabs of 64 rows
-//     stream through a 4-stage cp.async ring (rows padded to 168 bf16 =
-//     21 x 16 bytes, odd, so ldmatrix.trans reads them without conflicts).
-//   Each warp owns 64 columns of y x 80 GEMM columns (the hi or the lo
-//   half): 4 x 10 m16n8k16 tiles, 160 f32 accumulators a thread. At f32x2
-//   each B fragment feeds the xhi and the xlo MMA into one accumulator.
-//   Epilogue: the hi warps store their sums to shared memory, the lo warps
-//   add theirs (y = acc_hi + acc_lo), and all threads store y (80, Ky) f32
-//   row-major in coalesced rows, masked at the ragged Ky edge; frame rows
-//   past J are zero-filled by the copy (cp.async src-size 0).
+//   B, the weights: a (K_pad, kN) bf16 table of convert.py with zero rows up
+//     to a multiple of 64 — kB = 2 halves, kN = 160 (hilo_weights):
+//     B[s*40 + i][o] = Ghi[s][o, i], B[s*40 + i][80 + o] = Glo[s][o, i]; kB =
+//     1, kN = 80 (bf16_weights): B[s*40 + i][o] = bf16(G[s][o, i]). K-slabs
+//     of 64 rows stream through a 4-stage cp.async ring (rows padded to kN +
+//     8 bf16: 21 or 11 x 16 bytes, odd, so ldmatrix.trans reads them without
+//     conflicts).
+//   The CTA has two warp groups (wn = 0, 1) of kWarpsM warps; each warp owns
+//   64 columns of y x 80 GEMM columns: 4 x 10 m16n8k16 tiles, 160 f32
+//   accumulators a thread. With two B halves, group wn takes half wn (hi or
+//   lo) over every K row; with one, the groups split each 64-row K stage
+//   (group wn its k16 steps 2 wn and 2 wn + 1), so each sums half the terms.
+//   At f32x2 each B fragment feeds the xhi and the xlo MMA into one
+//   accumulator.
+//   Epilogue: group 0 stores its sums to shared memory, group 1 adds its own
+//   (y = acc_hi + acc_lo, or the two split-K partial sums), and all threads
+//   store y (80, Ky) f32 row-major in coalesced rows, masked at the ragged
+//   Ky edge; frame rows past J are zero-filled by the copy (cp.async
+//   src-size 0).
 //
 // Bound on the H100: operations. The pair is 2 x 2 x 80 x 40 x 65 FLOP per
 // column, ~110 GFLOP per 131k-column bench block: 0.111 ms at the 989
-// TFLOP/s bf16 tensor-core rate (f32x2: twice that, 0.223 ms); the bytes
-// (~10.6 MB of frames in, ~42 MB of y out) take ~16 us.
+// TFLOP/s bf16 tensor-core rate (f32x2: twice that, 0.223 ms; bf16: half,
+// 0.056 ms); the bytes (~10.6 MB of frames in, ~42 MB of y out) take ~16 us.
 // Weight traffic: every CTA sweeps all of B (2624 x 160 bf16 = 840 KB at
-// 1280 taps) from L2. The column tile is 256 (8 warps, 1 CTA per SM)
-// wherever that still gives one CTA per SM: 518 CTAs and ~435 MB of L2
-// reads per bench block, half of what 128-column tiles cost.
+// 1280 taps, 420 KB at bf16) from L2. The column tile is 256 (8 warps, 1
+// CTA per SM) wherever that still gives one CTA per SM: 518 CTAs and ~435
+// MB of L2 reads per bench block, half of what 128-column tiles cost.
 // Occupancy: the caller picks the tile (warps_m, 64 columns each: 4, 2 or
 // 1) as the widest whose grid fills every SM; at the CLI's 8192-sample
 // blocks (~9668 columns) that is 64 columns, 152 CTAs of 2 warps, where
@@ -56,15 +69,21 @@ namespace {
 
 constexpr int kIn = 40;            // frame rows per column (20 I + 20 Q)
 constexpr int kOut = 80;           // y rows
-constexpr int kN = 2 * kOut;       // GEMM N: hi columns 0..79, lo 80..159
 constexpr int kWarpM = 64;         // y columns per warp
 constexpr int kMT = kWarpM / 16;   // m16 tiles per warp
 constexpr int kNT = kOut / 8;      // n8 tiles per warp (one half of N)
 constexpr int kKS = 64;            // K rows per pipeline stage (4 k16 steps)
 constexpr int kStages = 4;
-constexpr int kBRow = kN + 8;      // shared row of a B stage: 168 bf16
-constexpr int kStageElems = kKS * kBRow;
-constexpr int kRingBytes = kStages * kStageElems * 2;
+
+// the B table of kB halves: GEMM N (hi columns 0..79, lo 80..159) and the
+// shared row of a B stage (168 or 88 bf16)
+template <int kB>
+struct BLayout {
+  static constexpr int kN = kB * kOut;
+  static constexpr int kBRow = kN + 8;
+  static constexpr int kStageElems = kKS * kBRow;
+  static constexpr int kRingBytes = kStages * kStageElems * 2;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -113,14 +132,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// kA frame operands (1: bf16x2w, 2: f32x2 [xhi; xlo]); 2 * kWarpsM warps,
-// warp w computing columns (w % kWarpsM) * 64 .. + 63 of the tile against
-// the hi (w < kWarpsM) or the lo half of B.
-template <int kA, int kWarpsM>
+// kA frame operands (1: bf16x2w and bf16, 2: f32x2 [xhi; xlo]), kB B halves
+// (2: the hi/lo pair, 1: bf16); 2 * kWarpsM warps, warp w computing columns
+// (w % kWarpsM) * 64 .. + 63 of the tile against the hi (w < kWarpsM) or the
+// lo half of B, or with one half against k16 steps 2 (w / kWarpsM) and
+// 2 (w / kWarpsM) + 1 of each stage.
+template <int kA, int kB, int kWarpsM>
 __device__ __forceinline__ void hilo_body(
     const __nv_bfloat16* __restrict__ frames,
     const __nv_bfloat16* __restrict__ b, float* __restrict__ y, long long j,
     long long ky, int k_pad) {
+  constexpr int kN = BLayout<kB>::kN;
+  constexpr int kBRow = BLayout<kB>::kBRow;
+  constexpr int kStageElems = BLayout<kB>::kStageElems;
+  constexpr int kSteps = kKS / 16 / (3 - kB);   // k16 steps a warp takes
   constexpr int kBM = kWarpsM * kWarpM;
   constexpr int kThreads = 2 * kWarpsM * 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -167,7 +192,7 @@ __device__ __forceinline__ void hilo_body(
   const int a_row = wm * kWarpM + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_col = (lane >> 4) * 8;
   const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int b_col = wn * kOut + (lane >> 4) * 8;
+  const int b_col = (kB == 2 ? wn * kOut : 0) + (lane >> 4) * 8;
   const uint32_t fs_lane = smem_u32(fs) + 2 * (a_row * kIn + a_col);
   const uint32_t bs_lane = smem_u32(bs) + 2 * (b_row * kBRow + b_col);
 
@@ -177,7 +202,8 @@ __device__ __forceinline__ void hilo_body(
     load_stage(st + kStages - 1);
     const uint32_t bst = bs_lane + (st % kStages) * kStageElems * 2;
 #pragma unroll
-    for (int ks = 0; ks < kKS / 16; ++ks) {
+    for (int step = 0; step < kSteps; ++step) {
+      const int ks = kB == 2 ? step : wn * kSteps + step;
       const int kk = st * kKS + ks * 16;
       uint32_t af[kA][kMT][4];
 #pragma unroll
@@ -235,7 +261,7 @@ __global__ void __launch_bounds__(2 * kWarpsM * 32, 1)
                               const __nv_bfloat16* __restrict__ b,
                               float* __restrict__ y, long long j, long long ky,
                               int k_pad) {
-  hilo_body<1, kWarpsM>(frames, b, y, j, ky, k_pad);
+  hilo_body<1, 2, kWarpsM>(frames, b, y, j, ky, k_pad);
 }
 
 template <int kWarpsM>
@@ -244,7 +270,16 @@ __global__ void __launch_bounds__(2 * kWarpsM * 32, 1)
                                    const __nv_bfloat16* __restrict__ b,
                                    float* __restrict__ y, long long j,
                                    long long ky, int k_pad) {
-  hilo_body<2, kWarpsM>(frames, b, y, j, ky, k_pad);
+  hilo_body<2, 2, kWarpsM>(frames, b, y, j, ky, k_pad);
+}
+
+template <int kWarpsM>
+__global__ void __launch_bounds__(2 * kWarpsM * 32, 1)
+    filterbank_im2col_bf16_kernel(const __nv_bfloat16* __restrict__ frames,
+                                  const __nv_bfloat16* __restrict__ b,
+                                  float* __restrict__ y, long long j,
+                                  long long ky, int k_pad) {
+  hilo_body<1, 1, kWarpsM>(frames, b, y, j, ky, k_pad);
 }
 
 using Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, float*,
@@ -253,9 +288,10 @@ using Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, float*,
 // The dynamic shared-memory limit set per kernel instance and device so
 // far: a launch raises it (cudaFuncSetAttribute) only when it needs more.
 constexpr int kMaxDevices = 64;
-int g_smem_limit[2][3][kMaxDevices];
+int g_smem_limit[3][3][kMaxDevices];
 
-template <int kA>
+// kInst: 0 bf16x2w, 1 f32x2, 2 bf16
+template <int kA, int kB, int kInst>
 int launch(Kernel k1, Kernel k2, Kernel k4, const void* frames, const void* b,
            void* y, long long j, int ky, int k_pad, int warps_m,
            void* stream) {
@@ -267,12 +303,12 @@ int launch(Kernel k1, Kernel k2, Kernel k4, const void* frames, const void* b,
   const int bm = warps_m * kWarpM;
   const int frame_bytes = kA * (bm + (k_pad + kIn - 1) / kIn) * kIn * 2;
   const int y_bytes = kOut * (bm + 4) * 4;
-  int smem = kRingBytes + frame_bytes;
+  int smem = BLayout<kB>::kRingBytes + frame_bytes;
   if (y_bytes > smem) smem = y_bytes;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int* limit = g_smem_limit[kA - 1][slot];
+  int* limit = g_smem_limit[kInst][slot];
   if (dev >= kMaxDevices || smem > limit[dev]) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -292,7 +328,7 @@ int launch(Kernel k1, Kernel k2, Kernel k4, const void* frames, const void* b,
 extern "C" int btle_filterbank_bf16x2w(const void* frames, const void* b,
                                        void* y, long long j, int ky, int k_pad,
                                        int warps_m, void* stream) {
-  return launch<1>(filterbank_bf16x2w_kernel<1>, filterbank_bf16x2w_kernel<2>,
+  return launch<1, 2, 0>(filterbank_bf16x2w_kernel<1>, filterbank_bf16x2w_kernel<2>,
                    filterbank_bf16x2w_kernel<4>, frames, b, y, j, ky, k_pad,
                    warps_m, stream);
 }
@@ -302,8 +338,19 @@ extern "C" int btle_filterbank_im2col_f32x2(const void* frames, const void* b,
                                             void* y, long long j, int ky,
                                             int k_pad, int warps_m,
                                             void* stream) {
-  return launch<2>(filterbank_im2col_f32x2_kernel<1>,
-                   filterbank_im2col_f32x2_kernel<2>,
-                   filterbank_im2col_f32x2_kernel<4>, frames, b, y, j, ky,
-                   k_pad, warps_m, stream);
+  return launch<2, 2, 1>(filterbank_im2col_f32x2_kernel<1>,
+                         filterbank_im2col_f32x2_kernel<2>,
+                         filterbank_im2col_f32x2_kernel<4>, frames, b, y, j, ky,
+                         k_pad, warps_m, stream);
+}
+
+// frames (J, 40) bf16 time-major; b (k_pad, 80) bf16; y (80, ky) f32
+extern "C" int btle_filterbank_im2col_bf16(const void* frames, const void* b,
+                                           void* y, long long j, int ky,
+                                           int k_pad, int warps_m,
+                                           void* stream) {
+  return launch<1, 1, 2>(filterbank_im2col_bf16_kernel<1>,
+                         filterbank_im2col_bf16_kernel<2>,
+                         filterbank_im2col_bf16_kernel<4>, frames, b, y, j, ky,
+                         k_pad, warps_m, stream);
 }

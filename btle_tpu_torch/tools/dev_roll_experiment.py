@@ -10,10 +10,11 @@ undone:
 
   im2col-copy, im2col-sroll (sroll32 in bf16)  K5 (``filterbank_im2col``,
             kind "f32_im2col", or "bf16" with --dtype bf16) on the tool's
-            G (5, 80, 520), which is already K5's bf16 weight layout (at
-            f32, ``convert.sgemm_weights`` lays it out as (40, 65, 80));
-            the sroll variants reverse the shifts inside each chunk of G,
-            undone before the launch.
+            G (5, 80, 520), laid out as the kernel takes it
+            (``convert.sgemm_weights``' (40, 65, 80) at f32,
+            ``convert.bf16_weights``' (K_pad, 80) at bf16, with the frames
+            time-major, ``fused.hilo_frames``); the sroll variants reverse
+            the shifts inside each chunk of G, undone before the launch.
   aa-fma, aa-sroll, aa-mxu  ``aa_corr`` on the +-1 lattice: the per-tap
             weights as they are (fma, summed one tap at a time), reversed
             inside each group of 8 (sroll) or spread over the
@@ -139,15 +140,19 @@ def _timed(res: dict, dev, kernel, plain, library, blocks, iters, trials):
 def run_im2col(dev, dtype: str, n_tiles: int, iters: int, trials: int) -> dict:
     import torch
 
-    from ..convert import sgemm_weights
+    from ..convert import bf16_weights, sgemm_weights
     from ..wideband.channelizer import true_fp32
-    from ..wideband.fused import filterbank_im2col, filterbank_im2col_reference
+    from ..wideband.fused import (filterbank_im2col, filterbank_im2col_reference,
+                                  hilo_frames)
     from ._measure import BF16_FLOPS, FP32_FLOPS, bound_ms
 
     g, frames_np, _, _ = make_inputs(n_tiles)
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
     kind = "f32_im2col" if dtype == "f32" else "bf16"
     frames = [torch.as_tensor(f, device=dev).to(tdt) for f in frames_np]
+    # the kernel's frames: (40, J) float32, or time-major (J, 40) bf16
+    kframes = frames if dtype == "f32" else [
+        hilo_frames(torch.as_tensor(f, device=dev), f.shape[1], False) for f in frames_np]
     n_cols = n_tiles * T
     out = {}
     for variant in (("copy", "sroll") if dtype == "f32" else ("copy", "sroll32")):
@@ -155,21 +160,22 @@ def run_im2col(dev, dtype: str, n_tiles: int, iters: int, trials: int) -> dict:
         gk = torch.as_tensor(layout if variant == "copy" else reverse_chunks(layout),
                              device=dev).to(tdt)
         w = im2col_weights(gk)
-        if dtype == "f32":      # the FP32 kernel's (40, S, 80) layout
-            gk = sgemm_weights(gk)
-        y = filterbank_im2col(frames[0], gk, WIDTH, n_cols, kind)
+        # the FP32 kernel's (40, S, 80) layout, the tensor cores' (K_pad, 80)
+        gk = sgemm_weights(gk) if dtype == "f32" else bf16_weights(gk)
+        y = filterbank_im2col(kframes[0], gk, WIDTH, n_cols, kind)
         res = {"checksum": checksums(y)}
         res["bound_ms"], res["bound_by"] = bound_ms(
             frames[0].numel() * frames[0].element_size()
             + gk.numel() * gk.element_size() + 80 * n_cols * 4,
             2 * 80 * 40 * WIDTH * n_cols, FP32_FLOPS if dtype == "f32" else BF16_FLOPS)
 
-        def library(f, w=w):
+        def library(b, w=w):
             with true_fp32():
-                return torch.nn.functional.conv1d(f[None], w)[0, :, :n_cols]
-        _timed(res, dev, lambda f, gk=gk: filterbank_im2col(f, gk, WIDTH, n_cols, kind),
-               lambda f, gk=gk: filterbank_im2col_reference(f, gk, WIDTH, n_cols, kind),
-               library, frames, iters, trials)
+                return torch.nn.functional.conv1d(b[1][None], w)[0, :, :n_cols]
+        # blocks: (the kernel's frames, the (40, J) frames of the yardstick)
+        _timed(res, dev, lambda b, gk=gk: filterbank_im2col(b[0], gk, WIDTH, n_cols, kind),
+               lambda b, gk=gk: filterbank_im2col_reference(b[0], gk, WIDTH, n_cols, kind),
+               library, list(zip(kframes, frames)), iters, trials)
         out[f"im2col-{variant}"] = res
     return out
 

@@ -1,4 +1,4 @@
-"""Time the CUDA-core FP32 kernels of two source trees on one card, in turns.
+"""Time the kernels of two source trees on one card, in turns.
 
 Usage: python btle_tpu_torch/tools/kernel_ab.py TREE [TREE ...]
 
@@ -8,16 +8,17 @@ are measured in the order given, each in a fresh child process that puts
 its TREE first on ``sys.path``, builds that tree's kernels and times them
 (the order parent, this, this, parent compares two trees on one card):
 
-  - K5 at "f32" im2col (``filterbank_im2col``, kind "f32_im2col") and at
-    "bf16" on one bench-geometry block (131072 + 1476 channel samples,
-    1280 taps, noise of std 30), operands from that tree's
-    ``frontend_operands``;
+  - K1 ("bf16x2w", ``filterbank_bf16x2w``), K5 at "f32" im2col
+    (``filterbank_im2col``, kind "f32_im2col") and at "bf16", and K2
+    (``demod_tail`` on K1's y) on one bench-geometry block (131072 + 1476
+    channel samples, 1280 taps, noise of std 30), operands from that
+    tree's ``frontend_operands``;
   - K11 f32 and bf16 (``dev_roll_experiment.run``, im2col-copy at 64
     tiles);
   - K10 at R = 40, 80 and 160 (``dev_rollscale.run``, 64 tiles).
 
-Times are CUDA events, the median of 5 trials of 20 launches (K5) or of
-the probes' own trials. Each child prints one JSON line: the tree, the
+Times are CUDA events, the median of 5 trials of 20 launches (K1, K2, K5)
+or of the probes' own trials. Each child prints one JSON line: the tree, the
 card's name and power limit, and {kernel: ms}; the parent process prints
 them again as one JSON list on its last line. It needs a CUDA card.
 """
@@ -75,6 +76,11 @@ def child(tree: str) -> dict:
     xi, xq = (30.0 * torch.randn(n, generator=gen, device=dev) for _ in range(2))
     aa, mask = default_scan_tables(dev)[:2]
     ms = {}
+    fb, tail = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4,
+                                       "bf16x2w", 1.0, dev)
+    ms["K1 bf16x2w"] = _cuda_ms(lambda: fused.filterbank_bf16x2w(*fb))
+    y = fused.filterbank_bf16x2w(*fb)
+    ms["K2 demod_tail"] = _cuda_ms(lambda: fused.demod_tail(y, *tail))
     for label, dtype, inner in (("K5 f32 im2col", "f32", "im2col"),
                                 ("K5 bf16", "bf16", None)):
         fb, _ = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4,

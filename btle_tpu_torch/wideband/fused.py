@@ -20,8 +20,10 @@ module:
        hi/lo split, (2, J, 40), whose four products per term the kernel
        sums into one accumulator;
      - ``"bf16"`` (im2col, im2colp, dots): the same folded filterbank
-       with the bf16 weights and (40, J) frames on the CUDA cores
-       (``filterbank_im2col(kind="bf16")``, K5, ``csrc/filterbank_im2col.cu``);
+       with the bf16 weights, one product per term, on the same
+       tensor-core template: the time-major (J, 40) bf16 frames and the
+       (K_pad, 80) table of ``convert.bf16_weights``
+       (``filterbank_im2col(kind="bf16")``, K5, its third instance);
      - ``"f32"`` with im2col, im2colp or dots: the same in true FP32 as a
        CUDA-core SGEMM of the (40, J) frames and the (40, S, 80) table of
        ``convert.sgemm_weights`` (``filterbank_im2col(kind="f32_im2col")``,
@@ -68,9 +70,8 @@ FILTERBANK_BF16X2W = CudaKernel("filterbank_bf16x2w",
                                 replaces="btle_tpu/wideband/fused.py:373")
 FILTERBANK_POLYX_F32 = CudaKernel("filterbank_polyx_f32",
                                   replaces="btle_tpu/wideband/fused.py:620")
-# K5: one kernel per numerics class ("bf16" in filterbank_im2col.cu,
-# "f32_im2col" in filterbank_sgemm_f32.cu, "f32x2" the hi/lo template's
-# second instance)
+# K5: one kernel per numerics class ("bf16" and "f32x2" instances of the
+# tensor-core template, "f32_im2col" in filterbank_sgemm_f32.cu)
 FILTERBANK_IM2COL = {
     kind: CudaKernel(f"filterbank_im2col_{cls}",
                      replaces="btle_tpu/wideband/fused.py:373")
@@ -319,9 +320,9 @@ def hilo_frames(f_t, n_cols: int, split: bool):
 
 
 def _hilo_conv_weights(b, width: int):
-    """The (K_pad, 160) hi/lo table -> float32 conv weights (160, 40,
-    width), W[o', i, s] = B[s*40 + i, o']."""
-    return (b[: width * 2 * D].to(torch.float32).reshape(width, 2 * D, 4 * M)
+    """A (K_pad, N) tensor-core B table (N = 160, the hi/lo pair, or 80)
+    -> float32 conv weights (N, 40, width), W[o', i, s] = B[s*40 + i, o']."""
+    return (b[: width * 2 * D].to(torch.float32).reshape(width, 2 * D, b.shape[1])
             .permute(2, 1, 0).contiguous())
 
 
@@ -358,12 +359,16 @@ def filterbank_f32x2_reference(frames, b, width: int, ky: int):
     return y
 
 
-def _launch_hilo(kernel, frames, b, width: int, ky: int, n_ops: int):
+def _launch_hilo(kernel, frames, b, width: int, ky: int, n_ops: int,
+                 b_cols: int = 4 * M):
+    """Launch an instance of the tensor-core template: ``n_ops`` frame
+    operands, a B table of ``b_cols`` columns (160: the hi/lo pair, 80:
+    the "bf16" weights)."""
     _check_cuda(kernel.name, frames, b)
     if (frames.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
             or frames.ndim != (2 if n_ops == 1 else 3) or frames.shape[-1] != 2 * D
             or (n_ops == 2 and frames.shape[0] != 2)
-            or b.ndim != 2 or b.shape[1] != 4 * M or b.shape[0] % HILO_K_ALIGN
+            or b.ndim != 2 or b.shape[1] != b_cols or b.shape[0] % HILO_K_ALIGN
             or b.shape[0] < width * 2 * D):
         raise ValueError(f"{kernel.name}: bad dtypes or shapes "
                          f"{tuple(frames.shape)} {frames.dtype}, "
@@ -396,13 +401,12 @@ def filterbank_im2col_reference(frames, gk, width: int, ky: int, kind: str):
         # W[o, i, s] = T[i, s, o]; the table holds N_CHUNKS chunks of shifts
         w = gk.permute(2, 0, 1)
         chunk = gk.shape[1] // N_CHUNKS
+        x = frames.to(torch.float32)
     else:
-        n_chunks, rows, cols = gk.shape
-        chunk = cols // (2 * D)
-        # W[o, i, c*chunk + j] = g[c, o, j*40 + i]
-        w = (gk.to(torch.float32).reshape(n_chunks, 2 * M, chunk, 2 * D)
-             .permute(1, 3, 0, 2).reshape(2 * M, 2 * D, n_chunks * chunk))
-    x = frames.to(torch.float32)
+        # the (K_pad, 80) B table and the time-major (J, 40) frames
+        w = _hilo_conv_weights(gk, width)
+        chunk = -(-width // N_CHUNKS)
+        x = frames.to(torch.float32).t().contiguous()
     y = torch.zeros((2 * M, ky), dtype=torch.float32, device=frames.device)
     with true_fp32():
         for s0 in range(0, width, chunk):
@@ -414,40 +418,32 @@ def filterbank_im2col_reference(frames, gk, width: int, ky: int, kind: str):
 
 def filterbank_im2col(frames, gk, width: int, ky: int, kind: str):
     """K5: the folded filterbank in numerics class ``kind`` — "bf16":
-    (40, J) bf16 frames, (n_chunks, 80, chunk*40) bf16 weights;
-    "f32_im2col": (40, J) float32 frames and the (40, S, 80) float32
-    table of ``convert.sgemm_weights`` (S = N_CHUNKS chunks of shifts,
-    at least ``width``); "f32x2": the (2, J, 40) time-major [xhi; xlo]
-    bf16 frames (``hilo_frames``) and the (K_pad, 160) hi/lo weights, on
-    the tensor-core template. Frames zero-padded to at least ky + width -
-    1 columns (the kernels read zeros past J) -> y (80, ky) float32."""
+    the (J, 40) time-major bf16 frames (``hilo_frames``) and the (K_pad,
+    80) bf16 weights of ``convert.bf16_weights``, and "f32x2": the (2, J,
+    40) time-major [xhi; xlo] bf16 frames and the (K_pad, 160) hi/lo
+    weights, both on the tensor-core template; "f32_im2col": (40, J)
+    float32 frames and the (40, S, 80) float32 table of
+    ``convert.sgemm_weights`` (S = N_CHUNKS chunks of shifts, at least
+    ``width``). Frames zero-padded to at least ky + width - 1 columns
+    (the kernels read zeros past J) -> y (80, ky) float32."""
     if frames.device.type == "cpu":
         return filterbank_im2col_reference(frames, gk, width, ky, kind)
     kernel = FILTERBANK_IM2COL[kind]
     if kind == "f32x2":
         return _launch_hilo(kernel, frames, gk, width, ky, 2)
+    if kind == "bf16":
+        return _launch_hilo(kernel, frames, gk, width, ky, 1, b_cols=2 * M)
     _check_cuda(kernel.name, frames, gk)
-    if kind == "f32_im2col":
-        if (frames.dtype != torch.float32 or gk.dtype != torch.float32
-                or frames.ndim != 2 or frames.shape[0] != 2 * D
-                or gk.ndim != 3 or gk.shape[0] != 2 * D or gk.shape[2] != 2 * M
-                or gk.shape[1] < width or gk.data_ptr() % 16):
-            raise ValueError(f"{kernel.name}: bad dtypes or shapes "
-                             f"{tuple(frames.shape)} {frames.dtype}, "
-                             f"{tuple(gk.shape)} {gk.dtype}")
-        y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
-        kernel.launch(frames, gk, y, frames.shape[1], ky, gk.shape[1], width,
-                      sgemm_warps(ky, _sm_count(frames.device)))
-        return y
-    n_chunks, rows, cols = gk.shape
-    if (frames.dtype != torch.bfloat16 or gk.dtype != torch.bfloat16
-            or frames.shape[0] != 2 * D or rows != 2 * M
-            or cols % (2 * D) or n_chunks * (cols // (2 * D)) < width):
+    if (frames.dtype != torch.float32 or gk.dtype != torch.float32
+            or frames.ndim != 2 or frames.shape[0] != 2 * D
+            or gk.ndim != 3 or gk.shape[0] != 2 * D or gk.shape[2] != 2 * M
+            or gk.shape[1] < width or gk.data_ptr() % 16):
         raise ValueError(f"{kernel.name}: bad dtypes or shapes "
                          f"{tuple(frames.shape)} {frames.dtype}, "
                          f"{tuple(gk.shape)} {gk.dtype}")
     y = torch.empty((2 * M, ky), dtype=torch.float32, device=frames.device)
-    kernel.launch(frames, gk, y, frames.shape[1], ky, cols // (2 * D), width)
+    kernel.launch(frames, gk, y, frames.shape[1], ky, gk.shape[1], width,
+                  sgemm_warps(ky, _sm_count(frames.device)))
     return y
 
 
@@ -514,10 +510,13 @@ def demod_tail(y, aa_rows, aa_mask, sps: int, lag: int, n_bits: int,
                n_hit: int):
     """y (80, Ky) float32 baseband, aa_rows (40, 32) and aa_mask (32,) int8
     -> bits (40, n_bits) int8, hit (40, n_hit) bool, mag (40, n_hit)
-    float32. Needs Ky >= n_bits + lag and Ky >= n_hit + 32*sps - 1."""
+    float32. Needs Ky >= n_bits + lag, Ky >= n_hit + 32*sps - 1, lag >= 0
+    and n_hit + 31*sps <= n_bits (each hit's AA window in the lattice)."""
     win = AA_BITS * sps
     if y.shape[1] < max(n_bits + lag, n_hit + win - 1):
         raise ValueError("demod_tail: y has too few columns")
+    if lag < 0 or n_hit + (AA_BITS - 1) * sps > n_bits:
+        raise ValueError("demod_tail: negative lag, or AA windows past n_bits")
     if y.device.type == "cpu":
         return demod_tail_reference(y, aa_rows, aa_mask, sps, lag, n_bits, n_hit)
     _check_cuda("demod_tail", y, aa_rows, aa_mask)
@@ -588,16 +587,14 @@ def frontend_operands(i_wb, q_wb, aa_rows, aa_mask, num_taps: int,
     # last hit position; columns past K come from zero frames, as on the TPU
     ky = max(k_out, n_hit + win - 1)
 
-    if kind in ("bf16x2w", "f32x2"):
+    if kind in ("bf16x2w", "f32x2", "bf16"):
         (b,) = _device_tables(kind, num_taps, cutoff_mhz, device)
         frames = hilo_frames(f_t, ky + width - 1, kind == "f32x2")
         fb_args = ((frames, b, width, ky) if kind == "bf16x2w"
                    else (frames, b, width, ky, kind))
-    elif kind in ("bf16", "f32_im2col"):
+    elif kind == "f32_im2col":
         (gk,) = _device_tables(kind, num_taps, cutoff_mhz, device)
         frames = torch.nn.functional.pad(f_t, (0, ky + width - 1 - f_t.shape[1]))
-        if kind == "bf16":
-            frames = frames.to(torch.bfloat16)
         fb_args = (frames.contiguous(), gk, width, ky, kind)
     else:
         if kind == "bf16_poly":

@@ -9,17 +9,18 @@ JSON line per phase:
   0. device: torch version, card name and power limit, clocks (nvidia-smi);
   1. build: seconds to compile the kernels (one nvcc per source, in
      parallel) and each kernel's ptxas register / shared-memory report;
-     the tensor-core hi/lo filterbank (K1, K5 f32x2), the FP32 SGEMM
-     filterbank (K5 f32) and shift_fma (K10) must not spill; the launch
-     shapes (dynamic shared memory, resident CTAs per SM, grid) of K5 f32
-     at bench geometry and of K10 at its three (R, N, STEP);
+     the tensor-core filterbank (K1, K5 f32x2 and bf16), the FP32 SGEMM
+     filterbank (K5 f32), the demod tail (K2) and shift_fma (K10) must
+     not spill; the launch shapes (dynamic shared memory, resident CTAs
+     per SM, grid) of K5 f32 at bench geometry and of K10 at its three
+     (R, N, STEP);
   2. kernels: each kernel against its plain PyTorch twin on the card, on
      one bench-geometry block with packets in it (131072 + 1476 channel
      samples, 1280-tap prototype, 16 candidate slots), the filterbank in
-     every numerics class (K1 bf16x2w and K5 f32x2 on the tensor cores,
-     K3 f32 polyx, K5 bf16 / f32 im2col) and each against one cuDNN
-     convolution computing the same y (timed later as its yardstick); the
-     narrowband
+     every numerics class (K1 bf16x2w, K5 f32x2 and K5 bf16 on the tensor
+     cores, K3 f32 polyx, K5 f32 im2col) and each against one cuDNN
+     convolution computing the same y (timed later as its yardstick), the
+     demod tail bit for bit on two of those y; the narrowband
      scan on a 131072 + 1473-sample int16 block at sps 4 / lag 1, at
      sps 8 / lag 8, with an all-zero care mask and on the 40 float
      channel rows of the wideband block with per-row access addresses;
@@ -79,8 +80,9 @@ JSON line per phase:
      after; per-kernel time, its
      twin's time, the bound, and for each filterbank one cuDNN
      convolution computing the same y as yardstick (K5 f32 and K10 also
-     with their CUDA-event trials and launch shapes); K1 also at the live
-     block's shape (8192 + halo columns: its twin, ms, CTAs, bound,
+     with their CUDA-event trials and launch shapes, K1, K5 bf16 and K2
+     with their ptxas reports); K1, K5 bf16 and K2 also at the live
+     block's shape (8192 + halo columns: the twin, ms, CTAs, bound,
      yardstick); the narrowband
      real-time factor (air seconds per wall second, median of 3 runs)
      at both block sizes; then a torch.profiler trace of 8 scan steps
@@ -465,12 +467,12 @@ def check_kernels(dev):
         got = fused.demod_tail(y_ref, *tail_args)
         want = fused.demod_tail_reference(y_ref, *tail_args)
         torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(
                 f"demod_tail ({mode}): bits differ at "
                 f"{int((got[0] != want[0]).sum())}, hits at "
-                f"{int((got[1] != want[1]).sum())} positions")
-        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+                f"{int((got[1] != want[1]).sum())}, mag at "
+                f"{int((got[2] != want[2]).sum())} positions")
         tail_err = max(tail_err, float((got[2] - want[2]).abs().max()))
         n_hits += int(want[1].sum())
     report["demod_tail"] = {"max_abs_err": tail_err, "hits": n_hits, "ok": True}
@@ -504,7 +506,8 @@ def filterbank_library_calls(operands) -> dict:
         bf16 on tensor cores,
         the (160, ., width) hi/lo rows, then the hi and lo halves summed
         in f32 (at f32x2 over the 80 [xhi; xlo] frame rows);
-      filterbank_im2col_bf16: bf16, the (80, 40, width) hi weights;
+      filterbank_im2col_bf16 (hilo_library_call): bf16, the (80, 40,
+        width) bf16 weights;
       filterbank_im2col_f32, filterbank_polyx_f32 (the same function):
         float32 frames and the folded (80, 40, width) weights in true FP32.
     cuDNN writes bf16 outputs, so the bf16 yardsticks round y (or each
@@ -515,31 +518,24 @@ def filterbank_library_calls(operands) -> dict:
     from btle_tpu_torch.wideband.channelizer import true_fp32
 
     calls = {name: hilo_library_call(operands[name][0])
-             for name in ("filterbank_bf16x2w", "filterbank_im2col_f32x2")}
-    for name in ("filterbank_im2col_bf16", "filterbank_im2col_f32"):
-        frames, gk, width = operands[name][0][:3]
-        if name == "filterbank_im2col_f32":      # the (40, S, 80) table
-            w = gk.permute(2, 0, 1)[:, :, :width].contiguous()
-        else:
-            n_chunks, rows, cols = gk.shape
-            fb_rows = frames.shape[0]
-            w = (gk.reshape(n_chunks, rows, cols // fb_rows, fb_rows).permute(1, 3, 0, 2)
-                 .reshape(rows, fb_rows, -1)[:, :, :width].contiguous())
+             for name in ("filterbank_bf16x2w", "filterbank_im2col_f32x2",
+                          "filterbank_im2col_bf16")}
+    frames, gk, width = operands["filterbank_im2col_f32"][0][:3]
+    w = gk.permute(2, 0, 1)[:, :, :width].contiguous()      # the (40, S, 80) table
 
-        def call(x=frames[None], w=w):
-            with true_fp32():
-                return torch.nn.functional.conv1d(x, w)[0].to(torch.float32)
-        calls[name] = call
-    calls["filterbank_polyx_f32"] = calls["filterbank_im2col_f32"]
+    def call(x=frames[None], w=w):
+        with true_fp32():
+            return torch.nn.functional.conv1d(x, w)[0]
+    calls["filterbank_im2col_f32"] = calls["filterbank_polyx_f32"] = call
     return calls
 
 
 def hilo_library_call(fb_args):
-    """The cuDNN yardstick of the tensor-core hi/lo filterbank: the
-    frames as (40, J) bf16 rows ([xhi; xlo], 80 rows, at f32x2), the
-    (K_pad, 160) table unfolded to (160, rows, width) bf16 conv weights
-    (each column over both halves at f32x2), one convolution, the hi and
-    lo halves summed in f32."""
+    """The cuDNN yardstick of the tensor-core filterbank: the frames as
+    (40, J) bf16 rows ([xhi; xlo], 80 rows, at f32x2), the (K_pad, N)
+    table unfolded to (N, rows, width) bf16 conv weights (each column
+    over both halves at f32x2), one convolution, and with the hi/lo pair
+    (N = 160) the two halves summed in f32."""
     import torch
 
     from btle_tpu_torch.wideband import fused
@@ -557,12 +553,13 @@ def hilo_library_call(fb_args):
     def call():
         with true_fp32():
             y = torch.nn.functional.conv1d(x, w)[0].to(torch.float32)
-        return y[:80] + y[80:]
+        return y[:80] + y[80:] if y.shape[0] == 160 else y
     return call
 
 
 def hilo_grid(dev, ky: int) -> dict:
-    """The tensor-core filterbank's column tile and grid at ky columns."""
+    """The tensor-core filterbank's column tile and grid at ky columns
+    (every instance of the template)."""
     import torch
 
     from btle_tpu_torch.wideband import fused
@@ -572,18 +569,30 @@ def hilo_grid(dev, ky: int) -> dict:
 
 
 def hilo_bound(fb_args, products: int):
-    """bound_ms of the hi/lo filterbank: frames, weights and y moved once;
-    ``products`` bf16 products (2 FLOP each) per weight term and column."""
+    """bound_ms of the tensor-core filterbank: frames, weights and y moved
+    once; ``products`` bf16 products (2 FLOP each) per weight term and
+    column (1 at bf16, 2 at bf16x2w, 4 at f32x2)."""
     frames, b, width, ky = fb_args[:4]
     return dict(zip(("bound_ms", "bound_by"), bound_ms(
         frames.numel() * 2 + b.numel() * 2 + 80 * ky * 4,
         products * 2 * 80 * 40 * width * ky, BF16_FLOPS)))
 
 
-def time_live_k1(dev) -> dict:
-    """K1 at the live block's shape (the CLI's 8192-sample blocks, 1279
-    samples of filter context, noise of std 30): within 1e-5 of max |y|
-    of its twin, its device time, grid, bound and cuDNN yardstick."""
+def tail_bound(y, n_bits: int, n_hit: int) -> dict:
+    """bound_ms of the demod tail: y, the AA tables and the three outputs
+    moved once; 3 operations per decision, |y_i|+|y_q|, the window tree
+    and a scale per RSSI position (10) and 2 integer ones per AA tap
+    (64)."""
+    return dict(zip(("bound_ms", "bound_by"), bound_ms(
+        y.numel() * 4 + 40 * 33 + 40 * n_bits + 40 * n_hit * 5,
+        40 * (3 * n_bits + (10 + 64) * n_hit), FP32_FLOPS)))
+
+
+def time_live(dev) -> dict:
+    """K1, K5 at "bf16" and K2 at the live block's shape (the CLI's
+    8192-sample blocks, 1279 samples of filter context, noise of std 30):
+    each filterbank within 1e-5 of max |y| of its twin, K2 bit for bit on
+    K1's y; device time, grid, bound and yardstick of each."""
     import torch
 
     from btle_tpu_torch.rx.pipeline import required_halo
@@ -594,24 +603,78 @@ def time_live_k1(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(9)
     xi, xq = (30.0 * torch.randn(n, generator=gen, device=dev) for _ in range(2))
     aa, mask = default_scan_tables(dev)[:2]
-    fb, _ = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4,
-                                    "bf16x2w", 1.0, dev)
-    y, y_ref = fused.filterbank_bf16x2w(*fb), fused.filterbank_bf16x2w_reference(*fb)
+    out = {}
+    for name, mode, kernel, products in (
+            ("filterbank_bf16x2w", "bf16x2w", fused.FILTERBANK_BF16X2W, 2),
+            ("filterbank_im2col_bf16", "bf16", fused.FILTERBANK_IM2COL["bf16"], 1)):
+        fb, tail = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4,
+                                           mode, 1.0, dev)
+        fn, twin = fused.FILTERBANKS[fused.filterbank_kind(mode)]
+        y, y_ref = fn(*fb), twin(*fb)
+        torch.cuda.synchronize()
+        err, scale = float((y - y_ref).abs().max()), float(y_ref.abs().max())
+        if not (err <= 1e-5 * scale and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"{name} at the live shape: max |dy| {err} at "
+                                 f"max |y| {scale}")
+        out[name] = {**hilo_grid(dev, fb[3]), "max_abs_err": err, "max_abs_y": scale,
+                     **kernel_times(kernel, lambda fn=fn, fb=fb: fn(*fb),
+                                    lambda twin=twin, fb=fb: twin(*fb), 50,
+                                    library=hilo_library_call(fb)),
+                     **hilo_bound(fb, products)}
+        if mode == "bf16x2w":
+            y_tail = y_ref
+            tail_args = tail
+    got = fused.demod_tail(y_tail, *tail_args)
+    want = fused.demod_tail_reference(y_tail, *tail_args)
     torch.cuda.synchronize()
-    err, scale = float((y - y_ref).abs().max()), float(y_ref.abs().max())
-    if not (err <= 1e-5 * scale and bool(torch.isfinite(y).all())):
-        raise AssertionError(f"filterbank_bf16x2w at the live shape: max |dy| "
-                             f"{err} at max |y| {scale}")
-    return {**hilo_grid(dev, fb[3]), "max_abs_err": err, "max_abs_y": scale,
-            **kernel_times(fused.FILTERBANK_BF16X2W, lambda: fused.filterbank_bf16x2w(*fb),
-                           lambda: fused.filterbank_bf16x2w_reference(*fb), 50,
-                           library=hilo_library_call(fb)),
-            **hilo_bound(fb, 2)}
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("demod_tail at the live shape disagrees with its twin")
+    n_bits, n_hit = tail_args[4], tail_args[5]
+    out["demod_tail"] = {
+        "columns": y_tail.shape[1], "n_bits": n_bits, "n_hit": n_hit,
+        "ctas": 40 * -(-n_bits // 2048), "max_abs_err": 0.0,
+        **kernel_times(fused.DEMOD_TAIL, lambda: fused.demod_tail(y_tail, *tail_args),
+                       lambda: fused.demod_tail_reference(y_tail, *tail_args), 50),
+        **tail_bound(y_tail, n_bits, n_hit)}
+    return out
 
 
 # the sources whose ptxas report must show no spills: the tensor-core
-# filterbank (K1, K5 f32x2), the FP32 SGEMM filterbank (K5 f32) and K10
-NO_SPILL_SOURCES = ("filterbank_hilo_mma", "filterbank_sgemm_f32", "shift_fma")
+# filterbank (K1, K5 f32x2 and bf16), the FP32 SGEMM filterbank (K5 f32),
+# the demod tail (K2) and K10
+NO_SPILL_SOURCES = ("filterbank_hilo_mma", "filterbank_sgemm_f32", "demod_tail",
+                    "shift_fma")
+
+
+def ptxas_kernels(logs: dict) -> dict:
+    """{source: {entry function: {"registers", "spill_stores",
+    "spill_loads"}}} from nvcc's -Xptxas=-v reports."""
+    out = {}
+    for source, text in logs.items():
+        entries, name = {}, None
+        for ln in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                name = m.group(1)
+                entries[name] = {}
+            elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+                entries[name]["spill_stores"] = int(m.group(1))
+                entries[name]["spill_loads"] = int(m.group(2))
+            elif name and (m := re.search(r"Used (\d+) registers", ln)):
+                entries[name]["registers"] = int(m.group(1))
+        out[source] = entries
+    return out
+
+
+def ptxas_of(ptx: dict, kernel) -> dict:
+    """The ptxas entries of one kernel's instances (its ``<name>_kernel``
+    template), keyed by the instance's template arguments."""
+    found = {}
+    for fn, info in ptx.get(kernel.source_name, {}).items():
+        m = re.search(rf"{kernel.name}_kernel(ILi(\d+)EE)?", fn)
+        if m:
+            found[f"warps_m={m.group(2)}" if m.group(2) else kernel.name] = info
+    return found
 
 
 def launch_plans(dev) -> dict:
@@ -1537,36 +1600,35 @@ def time_kernels(operands, decode_args, library) -> dict:
     from btle_tpu_torch.wideband import fused
 
     out = {}
-    # the hi/lo pair: two bf16 products per term at bf16x2w, four at f32x2
+    # the tensor-core template: bf16 products per term 2 at bf16x2w, 4 at
+    # f32x2 (the hi/lo pair), 1 at bf16
     for name, kernel, fn, twin, products in (
             ("filterbank_bf16x2w", fused.FILTERBANK_BF16X2W, fused.filterbank_bf16x2w,
              fused.filterbank_bf16x2w_reference, 2),
             ("filterbank_im2col_f32x2", fused.FILTERBANK_IM2COL["f32x2"],
-             fused.filterbank_im2col, fused.filterbank_im2col_reference, 4)):
+             fused.filterbank_im2col, fused.filterbank_im2col_reference, 4),
+            ("filterbank_im2col_bf16", fused.FILTERBANK_IM2COL["bf16"],
+             fused.filterbank_im2col, fused.filterbank_im2col_reference, 1)):
         fb, _, _ = operands[name]
         out[name] = {
             **kernel_times(kernel, lambda fn=fn, fb=fb: fn(*fb),
                            lambda twin=twin, fb=fb: twin(*fb), 10, library=library[name]),
             **hilo_bound(fb, products), **hilo_grid(fb[0].device, fb[3]),
         }
-    for name, rate in (("filterbank_im2col_bf16", BF16_FLOPS),
-                       ("filterbank_im2col_f32", FP32_FLOPS)):
-        fb, _, _ = operands[name]
-        frames, gk, width, ky, kind = fb
-        out[name] = {
-            **kernel_times(fused.FILTERBANK_IM2COL[kind],
-                           lambda fb=fb: fused.filterbank_im2col(*fb),
-                           lambda fb=fb: fused.filterbank_im2col_reference(*fb), 10,
-                           library=library[name]),
-            **dict(zip(("bound_ms", "bound_by"), bound_ms(
-                frames.numel() * frames.element_size()
-                + gk.numel() * gk.element_size() + 80 * ky * 4,
-                2 * 80 * 40 * width * ky, rate))),
-        }
-        if kind == "f32_im2col":
-            out[name]["ms_trials"] = event_trials(lambda fb=fb: fused.filterbank_im2col(*fb), 10)
-            out[name]["plan"] = fused.FILTERBANK_IM2COL[kind].plan(
-                ky, width, fused.sgemm_warps(ky, fused._sm_count(frames.device)))
+    fb, _, _ = operands["filterbank_im2col_f32"]
+    frames, gk, width, ky, kind = fb
+    out["filterbank_im2col_f32"] = {
+        **kernel_times(fused.FILTERBANK_IM2COL[kind],
+                       lambda: fused.filterbank_im2col(*fb),
+                       lambda: fused.filterbank_im2col_reference(*fb), 10,
+                       library=library["filterbank_im2col_f32"]),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            (frames.numel() + gk.numel() + 80 * ky) * 4,
+            2 * 80 * 40 * width * ky, FP32_FLOPS))),
+        "ms_trials": event_trials(lambda: fused.filterbank_im2col(*fb), 10),
+        "plan": fused.FILTERBANK_IM2COL[kind].plan(
+            ky, width, fused.sgemm_warps(ky, fused._sm_count(frames.device))),
+    }
     fb, _, _ = operands["filterbank_polyx_f32"]
     f4, kcoefx, w4x, ky, _ = fb
     rows, n_slices = kcoefx.shape
@@ -1584,11 +1646,8 @@ def time_kernels(operands, decode_args, library) -> dict:
     out["demod_tail"] = {
         **kernel_times(fused.DEMOD_TAIL, lambda: fused.demod_tail(y, *tail),
                        lambda: fused.demod_tail_reference(y, *tail), 20),
-        # decisions 3 flops per bit; |y_i|+|y_q|, 7 tree adds and a scale
-        # per RSSI position; 2 integer ops per AA tap
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            y.numel() * 4 + 40 * 33 + 40 * n_bits + 40 * n_hit * 5,
-            40 * (3 * n_bits + (10 + 64) * n_hit), FP32_FLOPS))),
+        "ms_trials": event_trials(lambda: fused.demod_tail(y, *tail), 20),
+        "ctas": 40 * -(-n_bits // 2048), **tail_bound(y, n_bits, n_hit),
     }
     bits, pos, whiten, crc, adv = decode_args
     m, c = pos.shape
@@ -1614,7 +1673,7 @@ def probe_kernel_entries(dev, probes) -> list:
     |kernel - twin| there, and its launches in that probe's run."""
     import torch
 
-    from btle_tpu_torch.convert import sgemm_weights
+    from btle_tpu_torch.convert import bf16_weights, sgemm_weights
     from btle_tpu_torch.tools import _kernels as K
     from btle_tpu_torch.tools import (dev_aagrp_bisect, dev_aagrp_repro,
                                       dev_roll_experiment, dev_rollscale)
@@ -1656,6 +1715,9 @@ def probe_kernel_entries(dev, probes) -> list:
           lambda: fused.demod_tail(y, *tail), lambda: fused.demod_tail_reference(y, *tail),
           50, y.numel() * 4 + 40 * 33 + 40 * nb + 40 * n_hit * 5,
           40 * (3 * nb + 74 * n_hit))
+    got, want = fused.demod_tail(y, *tail), fused.demod_tail_reference(y, *tail)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K8 tail: demod_tail disagrees with its twin")
     frames = torch.as_tensor(dev_aagrp_bisect.dma_frames(y_i, y_q), device=dev)
     ones = torch.ones((80, 1), device=dev)
     eye = torch.eye(80, device=dev)
@@ -1716,9 +1778,13 @@ def probe_kernel_entries(dev, probes) -> list:
         f11 = torch.as_tensor(frames_np[0], device=dev).to(dtype)
         gk = torch.as_tensor(g, device=dev).to(dtype)
         w11 = dev_roll_experiment.im2col_weights(gk)
-        if kind == "f32_im2col":       # the FP32 kernel's (40, 65, 80) table
-            gk = sgemm_weights(gk)
-        args = (f11, gk, 65, n_cols, kind)
+        # the FP32 kernel's (40, 65, 80) table and (40, J) frames, or the
+        # tensor cores' (K_pad, 80) table and time-major (J, 40) frames
+        if kind == "f32_im2col":
+            args = (f11, sgemm_weights(gk), 65, n_cols, kind)
+        else:
+            args = (fused.hilo_frames(torch.as_tensor(frames_np[0], device=dev),
+                                      f11.shape[1], False), bf16_weights(gk), 65, n_cols, kind)
 
         def conv(f11=f11, w11=w11):
             with true_fp32():
@@ -1727,7 +1793,7 @@ def probe_kernel_entries(dev, probes) -> list:
               "tools/dev_roll_experiment.py:109", probe,
               lambda args=args: fused.filterbank_im2col(*args),
               lambda args=args: fused.filterbank_im2col_reference(*args), 10,
-              f11.numel() * f11.element_size() + gk.numel() * gk.element_size()
+              f11.numel() * f11.element_size() + args[1].numel() * args[1].element_size()
               + 80 * n_cols * 4, 2 * 80 * 40 * 65 * n_cols, rate, library=conv)
         if kind == "f32_im2col":
             entries[-1]["ms_trials"] = event_trials(
@@ -1771,17 +1837,21 @@ def main() -> int:
                     decode_kernel.DECODE_CANDIDATES, scan_kernel.SCAN_BLOCK]
     kernels = [*path_kernels, *probe_kernels.KERNELS]
     t0 = time.perf_counter()
-    logs = _build.build([k.name for k in kernels])
+    logs = _build.build([k.name for k in kernels], force=True)
     seconds = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in text.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, text in logs.items()}
+    ptx = ptxas_kernels(logs)
     log({"phase": "build", "seconds": seconds, "ptxas": ptxas,
          "launch_plans": launch_plans(dev)})
     spills = [f"{n}: {ln}" for n in NO_SPILL_SOURCES for ln in ptxas.get(n, [])
               if re.search(r"[1-9]\d* bytes spill", ln)]
     if spills:
         raise AssertionError(f"the redesigned kernels spill: {spills}")
+    missing = [n for n in NO_SPILL_SOURCES if not ptx.get(n)]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
 
     report, operands, decode_args, library, wb_operands = check_kernels(dev)
     nb_i, nb_q, nb_want = narrowband_scene()
@@ -1839,7 +1909,10 @@ def main() -> int:
     clocks_after_scan = nvidia_smi(CLOCKS_QUERY)
     per_kernel = time_kernels(operands, decode_args, library)
     per_kernel["scan_block"] = time_scan_kernel(nb_scan_args)
-    per_kernel["filterbank_bf16x2w"]["live"] = time_live_k1(dev)
+    for name, live in time_live(dev).items():
+        per_kernel[name]["live"] = live
+    for k in (fused.FILTERBANK_BF16X2W, fused.FILTERBANK_IM2COL["bf16"], fused.DEMOD_TAIL):
+        per_kernel[k.name]["ptxas"] = ptxas_of(ptx, k)
     probe_entries = probe_kernel_entries(dev, probes)
     rtf = narrowband_rtf(dev, nb_i, nb_q)
     log({"phase": "timing", "scan": scans, "clocks_after_scan": clocks_after_scan,

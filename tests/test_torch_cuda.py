@@ -7,9 +7,11 @@ flip), sps 2 (LE 2M), the 640-tap prototype, a ragged block length,
 per-channel AA rows with care-mask holes, an all-zero care mask, float
 channel rows in the narrowband scan, candidate windows past the lattice
 end in both tail modes, every (compute_dtype, inner) pair of the fused
-front end (K1, K3, K5), the tensor-core hi/lo filterbank (K1, K5 f32x2)
-at the live block's shape, each column tile, a ragged ky and frames
-shorter than ky + width - 1 — every knob-matrix row's self-test, and the
+front end (K1, K3, K5), the tensor-core filterbank (K1, K5 at "f32x2"
+and "bf16") at the live block's shape, each column tile, a ragged ky and
+frames shorter than ky + width - 1, the demod tail (K2) bit for bit at
+sps 1-8, odd lag, ragged tiles and the live and K8 shapes — every
+knob-matrix row's self-test, and the
 port's device path against its CPU path (wideband sniffer with and
 without connection following, its live ring loop, the narrowband
 sniffer). They import no JAX, so they
@@ -135,8 +137,9 @@ def test_every_mode_matches_twin(dev, dtype, inner, num_taps, cutoff, sps, lag,
 
 
 # the filterbanks the redesigns gave register tiles and column tiles that
-# follow the grid — K1 and K5 at "f32x2" on the tensor cores, K5 at "f32"
-# (im2col) as a CUDA-core SGEMM — at the shapes the main paths give them:
+# follow the grid — K1 and K5 at "f32x2" and "bf16" on the tensor cores, K5
+# at "f32" (im2col) as a CUDA-core SGEMM — at the shapes the main paths
+# give them:
 # label, num_taps, sps, lag, has_context, wideband samples
 HILO_CASES = [
     ("live", 1280, 4, 4, True, (8192 + 1476) * 20 + 1279),    # ~9668 columns
@@ -151,6 +154,7 @@ HILO_CASES = [
 TILED_KINDS = {
     "bf16x2w": ("bf16x2w", None, lambda ky, sms: 64 * fused.hilo_warps_m(ky, sms)),
     "f32x2": ("f32x2", None, lambda ky, sms: 64 * fused.hilo_warps_m(ky, sms)),
+    "bf16": ("bf16", None, lambda ky, sms: 64 * fused.hilo_warps_m(ky, sms)),
     "f32_im2col": ("f32", "im2col", lambda ky, sms: 32 * fused.sgemm_warps(ky, sms)),
 }
 
@@ -169,8 +173,9 @@ def _tiled_operands(dev, kind, num_taps, sps, lag, ctx, n, seed):
 @pytest.mark.parametrize("label,num_taps,sps,lag,ctx,n", HILO_CASES)
 @pytest.mark.parametrize("dtype", sorted(TILED_KINDS))
 def test_hilo_kernels_match_twin(dev, dtype, label, num_taps, sps, lag, ctx, n):
-    """K1 and K5 at "f32x2" on the tensor cores, and K5 at "f32" on the
-    CUDA cores, against their twins: max |dy| within 1e-5 of max |y|, one
+    """K1 and K5 at "f32x2" and "bf16" on the tensor cores, and K5 at
+    "f32" on the CUDA cores, against their twins: max |dy| within 1e-5 of
+    max |y|, one
     launch, at the live block's shape, at each column tile (64, 128, 256
     columns), at a ky no tile divides, at sps 2 / lag 1, with filter
     context and at 640 taps."""
@@ -357,6 +362,61 @@ def test_wrappers_reject_bad_operands(dev):
             fused.filterbank_bf16x2w(*bad, 65, 3000)
     with pytest.raises(ValueError):       # f32x2 takes the (2, J, 40) pair
         fused.filterbank_im2col(frames, b, 65, 3000, "f32x2")
+    with pytest.raises(ValueError):       # bf16 takes the (K_pad, 80) table
+        fused.filterbank_im2col(frames, b, 65, 3000, "bf16")
+
+
+# the demod tail (K2): label, sps, lag, Ky, n_bits short of its largest,
+# care mask
+TAIL_CASES = [
+    ("sps4_lag4", 4, 4, 6000, 3, "holes"),
+    ("sps1_lag1", 1, 1, 5003, 0, "holes"),
+    ("sps2_lag1", 2, 1, 4500, 1, "holes"),
+    ("sps8_lag8", 8, 8, 7001, 0, "holes"),
+    ("sps4_lag1", 4, 1, 4801, 0, "holes"),
+    ("sps8_lag1", 8, 1, 3000, 0, "holes"),
+    ("zero_mask", 4, 4, 4099, 0, "zero"),
+    ("live", 4, 4, 9668, 0, "ones"),        # the CLI's 8192-sample blocks
+    ("k8_probe", 4, 4, 2176, 0, "ones"),    # K8 tail: (80, 2176), 2172 decisions
+]
+
+
+@pytest.mark.parametrize("label,sps,lag,ky,cut,mask_kind", TAIL_CASES)
+def test_demod_tail_bit_exact(dev, label, sps, lag, ky, cut, mask_kind):
+    """K2 against its twin, torch.equal on bits, hit and mag: n_bits no
+    2048-position tile divides, sps 1, 2, 4 and 8, lag 1 (odd bins flip),
+    4 and 8, per-channel AA rows, a care mask with holes and an all-zero
+    one, zero columns (d == 0 ties) and a wide dynamic range (the RSSI
+    tree's order shows in mag's last bits), at the live block's and K8's
+    probe shapes. One launch."""
+    rng = np.random.default_rng(ky + sps)
+    y = rng.normal(size=(80, ky)) * np.exp(2.0 * rng.normal(size=(80, ky)))
+    y[:, 700:760] = 0.0
+    y = torch.as_tensor(y.astype(np.float32), device=dev)
+    n_bits = min(ky - lag, ky - sps + 1) - cut
+    n_hit = n_bits - 31 * sps
+    assert n_bits % 2048
+    mask = torch.ones(32, dtype=torch.int8)
+    if mask_kind == "holes":
+        mask[[0, 9, 31]] = 0
+    elif mask_kind == "zero":
+        mask[:] = 0
+    mask = mask.to(dev)
+    # each channel's AA row: its own decisions from a random position
+    zero_rows = torch.zeros((40, 32), dtype=torch.int8, device=dev)
+    bits = fused.demod_tail_reference(y, zero_rows, mask, sps, lag, n_bits, n_hit)[0]
+    idx = torch.as_tensor(rng.integers(0, n_hit, (40, 1)) + sps * np.arange(32)[None],
+                          device=dev)
+    aa_rows = bits.gather(1, idx).contiguous()
+    before = fused.DEMOD_TAIL.launches
+    got = fused.demod_tail(y, aa_rows, mask, sps, lag, n_bits, n_hit)
+    want = fused.demod_tail_reference(y, aa_rows, mask, sps, lag, n_bits, n_hit)
+    torch.cuda.synchronize()
+    assert fused.DEMOD_TAIL.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    hits = int(want[1].sum())
+    assert hits == 40 * n_hit if mask_kind == "zero" else hits >= 40
 
 
 # --------------------------------------------------------------------------

@@ -198,7 +198,8 @@ def test_unported_modes_raise():
 
 
 @pytest.mark.parametrize("dtype,has_context", [("bf16x2w", False), ("bf16x2w", True),
-                                               ("f32x2", False), ("f32x2", True)])
+                                               ("f32x2", False), ("f32x2", True),
+                                               ("bf16", False), ("bf16", True)])
 def test_time_major_frames_match_frame_rows(dtype, has_context):
     """The tensor-core filterbank's frames (fused.hilo_frames) are
     frame_rows transposed to (J, 40) and rounded to bf16 ("f32x2": the
@@ -278,3 +279,56 @@ def test_f32_im2col_operands_are_the_sgemm_table(inner):
         want += g[c][:, j * 40:(j + 1) * 40] @ f64[:, s: s + ky]
     y = filterbank_im2col(*fb_args).numpy()
     assert np.abs(y - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("inner", ["im2col", "im2colp", "dots"])
+def test_bf16_operands_are_the_tensor_core_table(inner):
+    """frontend_operands at "bf16" with an im2col-form inner hands K5 the
+    time-major (ky + width - 1, 40) bf16 frames, zero past J, and the
+    (K_pad, 80) table of convert.bf16_weights; the twin on them gives the
+    sums of the JAX package's _g_chunks rounded to bf16 times the bf16
+    frames (within 1e-5 of max |y|: float32 chunk sums)."""
+    import jax.numpy as jnp
+
+    from btle_tpu.wideband.fused import _g_chunks as jg_chunks
+
+    from btle_tpu_torch.convert import bf16_weights
+    from btle_tpu_torch.wideband.channelizer import frame_rows
+    from btle_tpu_torch.wideband.fused import filterbank_im2col, frontend_operands
+
+    wi, wq = _scene(9, n=30011)
+    aa_rows, mask, *_ = _tables()
+    fb_args, _ = frontend_operands(wi, wq, aa_rows, mask, 640, True, 4, 4, "bf16",
+                                   1.0, torch.device("cpu"), inner)
+    frames, table, width, ky, kind = fb_args
+    assert kind == "bf16" and frames.dtype == torch.bfloat16
+    assert tuple(frames.shape) == (ky + width - 1, 40) and frames.is_contiguous()
+    f_t = frame_rows(torch.as_tensor(wi), torch.as_tensor(wq), 640, True)
+    assert torch.equal(frames[: f_t.shape[1]], f_t.t().to(torch.bfloat16))
+    assert not bool(frames[f_t.shape[1]:].any())
+    assert torch.equal(table, bf16_weights(jg_chunks(640)))
+    g = np.asarray(jnp.asarray(jg_chunks(640), jnp.bfloat16), np.float64)
+    chunk = g.shape[2] // 40
+    want = np.zeros((80, ky))
+    f64 = frames.to(torch.float32).numpy().astype(np.float64).T
+    for s in range(width):
+        c, j = divmod(s, chunk)
+        want += g[c][:, j * 40:(j + 1) * 40] @ f64[:, s: s + ky]
+    y = filterbank_im2col(*fb_args).numpy()
+    assert np.abs(y - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_demod_tail_rejects_bad_geometry():
+    """The demod tail refuses a negative lag and AA windows that run past
+    the decision lattice (on the CPU as on the card)."""
+    from btle_tpu_torch.wideband.fused import demod_tail
+
+    y = torch.zeros((80, 4000))
+    aa = torch.zeros((40, 32), dtype=torch.int8)
+    mask = torch.ones(32, dtype=torch.int8)
+    bits, hit, mag = demod_tail(y, aa, mask, 4, 4, 3000, 2876)
+    assert bits.shape == (40, 3000) and hit.shape == mag.shape == (40, 2876)
+    for sps, lag, n_bits, n_hit in ((4, -1, 3000, 2876), (4, 4, 3000, 2877),
+                                    (4, 4, 3997, 3870)):
+        with pytest.raises(ValueError):
+            demod_tail(y, aa, mask, sps, lag, n_bits, n_hit)

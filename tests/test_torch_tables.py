@@ -252,20 +252,38 @@ def _sgemm_mapping(g):
     return want
 
 
+def _bf16_mapping(g):
+    """B[s*40 + i, o] = G[s // chunk][o, (s % chunk)*40 + i], element by
+    element, zero rows up to a multiple of 64: the tensor-core B layout of
+    the "bf16" class."""
+    n_chunks, rows, cols = g.shape
+    chunk = cols // 40
+    shifts = n_chunks * chunk
+    want = np.zeros((-(-shifts * 40 // 64) * 64, rows), np.float32)
+    for s in range(shifts):
+        c, j = divmod(s, chunk)
+        for i in range(40):
+            want[s * 40 + i, :] = g[c, :, j * 40 + i]
+    return want
+
+
 @pytest.mark.parametrize("num_taps", [640, 1280])
 def test_k5_device_tables_equal_jax(num_taps):
     """The weights K5 runs on, per numerics class, are the JAX package's
     at that class: _g_chunks rounded to bf16 ("bf16", as jnp.asarray casts
-    it), _g_chunks_x2 with its duplicated columns dropped, in the
-    tensor-core B layout ("f32x2"), and _g_chunks in the FP32 kernel's
-    (40, S, 80) layout ("f32" im2col), exactly."""
+    it) and _g_chunks_x2 with its duplicated columns dropped ("f32x2"),
+    each in its tensor-core B layout with zero rows up to a multiple of
+    64, and _g_chunks in the FP32 kernel's (40, S, 80) layout ("f32"
+    im2col), exactly."""
     import jax.numpy as jnp
 
     dev = torch.device("cpu")
     (bf16,) = tfused._device_tables("bf16", num_taps, 1.0, dev)
-    want = np.asarray(jnp.asarray(jfused._g_chunks(num_taps), jnp.bfloat16),
-                      np.float32)
-    assert bf16.dtype == torch.bfloat16
+    want = _bf16_mapping(np.asarray(jnp.asarray(jfused._g_chunks(num_taps), jnp.bfloat16),
+                                    np.float32))
+    assert bf16.dtype == torch.bfloat16 and tuple(bf16.shape) == want.shape
+    assert bf16.shape[0] % convert.HILO_K_ALIGN == 0
+    assert not bool(bf16[jfused._g_chunks(num_taps).size // 80:].any())
     assert np.array_equal(bf16.to(torch.float32).numpy(), want)
     (x2,) = tfused._device_tables("f32x2", num_taps, 1.0, dev)
     assert x2.dtype == torch.bfloat16
@@ -324,6 +342,39 @@ def test_hilo_weight_layout_is_the_mapping(kind, table_fn, num_taps):
     assert b.shape[0] % convert.HILO_K_ALIGN == 0
     assert b.shape[0] >= jfused._g_stack(num_taps).shape[0] * 40
     assert np.array_equal(b.to(torch.float32).numpy(), want)
+
+
+@pytest.mark.parametrize("num_taps", HILO_TAPS)
+def test_bf16_weight_layout_is_the_mapping(num_taps):
+    """convert.bf16_weights of the JAX package's _g_chunks, numpy or
+    tensor in (a bf16 tensor kept as it is), equals the mapping of its
+    bf16 rounding element by element; the twin on it equals the chunked
+    true-FP32 sums of the bf16 weights; a table that is not an im2col one
+    is refused."""
+    g = jfused._g_chunks(num_taps)
+    g16 = torch.as_tensor(g).to(torch.bfloat16)
+    want = _bf16_mapping(g16.to(torch.float32).numpy())
+    for src in (g, torch.as_tensor(g), g16):
+        b = convert.bf16_weights(src)
+        assert b.dtype == torch.bfloat16 and b.is_contiguous()
+        assert np.array_equal(b.to(torch.float32).numpy(), want)
+    width = jfused._g_stack(num_taps).shape[0]
+    rng = np.random.default_rng(num_taps)
+    frames = torch.as_tensor(rng.normal(0, 3, (300 + width - 1, 40))).to(torch.bfloat16)
+    y = tfused.filterbank_im2col_reference(frames, convert.bf16_weights(g), width, 300,
+                                           "bf16")
+    chunk = g.shape[2] // 40
+    ref = torch.zeros((80, 300))
+    x = frames.to(torch.float32).t()
+    with tch.true_fp32():
+        for s0 in range(0, width, chunk):
+            s1 = min(s0 + chunk, width)
+            w = torch.stack([g16[s // chunk, :, (s % chunk) * 40:(s % chunk + 1) * 40]
+                             for s in range(s0, s1)], dim=2).to(torch.float32)
+            ref += torch.nn.functional.conv1d(x[None, :, s0: s1 + 299].contiguous(), w)[0]
+    assert torch.equal(y, ref)
+    with pytest.raises(ValueError):
+        convert.bf16_weights(g[:, :40])
 
 
 @pytest.mark.parametrize("num_taps", [640, 1280])
