@@ -43,13 +43,15 @@ _SIGNATURES = {
     "filterbank_im2col_bf16": "pppliiip",
     # frames, (40, S, 80) weights, y, J, Ky, S, width, warps, stream
     "filterbank_im2col_f32": "pppliiiip",
-    # f4, kcoefx, w4x, y, J, Ky, rows, n_slices, stack, stream
-    "filterbank_polyx_f32": "ppppliiiip",
+    # f4, kcoefx, w4x, y, J, Ky, rows, n_slices, stack, warps, stream
+    "filterbank_polyx_f32": "ppppliiiiip",
     # y, aa_rows, aa_mask, bits, hit, mag, Ky, n_bits, n_hit, sps, lag, stream
     "demod_tail": "ppppppllliip",
     # bits, pos, whiten, crc_inits, adv, bytes, plen, match, len_ok,
     # M, Kb, C, sps, clamp_tail, stream
     "decode_candidates": "pppppppppiliiip",
+    # stream (an empty kernel: the launch floor beside K4)
+    "launch_floor": "p",
     # i, q, aa_rows, aa_mask, bits, hit, rows, N, sps, lag, is_float, stream
     "scan_block": "ppppppiliiip",
     # s, w, acc, hit, rows, ld_s, n_out, sps, grp, is_int8, n_mask, stream
@@ -60,12 +62,17 @@ _SIGNATURES = {
     "shift_fma": "pppilliip",
 }
 # the kernels whose source also exports btle_<name>_plan(..., int info[5]):
-# the launch shape a call would take, read back as PLAN_KEYS
+# the launch shape a call would take, read back as PLAN_KEYS (the last is
+# columns per CTA, or candidates per CTA for decode_candidates)
 _PLAN_SIGNATURES = {
     # rows, n, step, n_cols, 16-byte copies
     "shift_fma": "iiili",
     # Ky, width, warps
     "filterbank_im2col_f32": "iii",
+    # Ky, n_slices, stack, warps
+    "filterbank_polyx_f32": "iiii",
+    # M, C
+    "decode_candidates": "ii",
 }
 PLAN_KEYS = ("smem_bytes", "ctas_per_sm", "ctas", "threads", "tile_columns")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
@@ -74,7 +81,8 @@ _SOURCES = {"filterbank_bf16x2w": "filterbank_hilo_mma",
             "filterbank_im2col_f32x2": "filterbank_hilo_mma",
             "filterbank_im2col_bf16": "filterbank_hilo_mma",
             "filterbank_im2col_f32": "filterbank_sgemm_f32",
-            "shift_stack": "aa_corr"}
+            "shift_stack": "aa_corr",
+            "launch_floor": "decode_candidates"}
 
 
 def source_of(name: str) -> str:

@@ -5,9 +5,21 @@ from __future__ import annotations
 
 import statistics
 
+from .._build import CudaKernel
+
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # CUDA-core FP32
 BF16_FLOPS = 989e12             # dense tensor-core bf16
+
+
+# an empty kernel (csrc/decode_candidates.cu): the device time of a launch
+# that does nothing, the floor below which no kernel's time can go
+LAUNCH_FLOOR = CudaKernel("launch_floor", replaces="none: the launch floor")
+
+
+def launch_floor() -> None:
+    """Launch the empty kernel on the current CUDA stream."""
+    LAUNCH_FLOOR.launch()
 
 
 def bound_ms(nbytes: float, ops: float, rate: float) -> tuple[float, str]:

@@ -13,12 +13,17 @@ its TREE first on ``sys.path``, builds that tree's kernels and times them
     (``demod_tail`` on K1's y) on one bench-geometry block (131072 + 1476
     channel samples, 1280 taps, noise of std 30), operands from that
     tree's ``frontend_operands``;
+  - K3 (``filterbank_polyx_f32`` on that block's "f32" operands) and K4
+    (``decode_candidates`` on K2's lattice at the 16 earliest hits of
+    each channel, 40 x 16, and of one channel, 1 x 16);
   - K11 f32 and bf16 (``dev_roll_experiment.run``, im2col-copy at 64
     tiles);
   - K10 at R = 40, 80 and 160 (``dev_rollscale.run``, 64 tiles).
 
-Times are CUDA events, the median of 5 trials of 20 launches (K1, K2, K5)
-or of the probes' own trials. Each child prints one JSON line: the tree, the
+Times are CUDA events, the median of 5 trials of 20 launches (K1-K3, K5)
+or of the probes' own trials. K4 is timed by the profiler's device time
+over 50 launches: its wrapper's host work takes longer than the kernel, so
+events around back-to-back calls would time the host. Each child prints one JSON line: the tree, the
 card's name and power limit, and {kernel: ms}; the parent process prints
 them again as one JSON list on its last line. It needs a CUDA card.
 """
@@ -53,12 +58,32 @@ def _cuda_ms(fn, iters: int = 20, trials: int = 5) -> float:
     return statistics.median(runs)
 
 
+def _device_ms(fn, kernel_name: str, reps: int = 50) -> float:
+    """Device time per launch of the kernel named ``kernel_name`` over
+    ``reps`` calls of ``fn``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if kernel_name in e.key]
+    launches = sum(e.count for e in found)
+    if not launches:
+        raise AssertionError(f"kernel_ab: the profiler recorded no {kernel_name}")
+    return sum(e.self_device_time_total for e in found) / 1e3 / launches
+
+
 def child(tree: str) -> dict:
     """Measure the kernels of the btle_tpu_torch package under ``tree``."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
-    from btle_tpu_torch.rx.pipeline import required_halo
+    from btle_tpu_torch.rx.decode_kernel import decode_candidates
+    from btle_tpu_torch.rx.pipeline import earliest_hits, required_halo
     from btle_tpu_torch.tools import dev_roll_experiment, dev_rollscale
     from btle_tpu_torch.wideband import fused
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
@@ -74,13 +99,21 @@ def child(tree: str) -> dict:
     n = (SCAN_LEN + required_halo(4, 4)) * 20 + NUM_TAPS - 1
     gen = torch.Generator(device=dev).manual_seed(0)
     xi, xq = (30.0 * torch.randn(n, generator=gen, device=dev) for _ in range(2))
-    aa, mask = default_scan_tables(dev)[:2]
+    aa, mask, whiten, crc, adv = default_scan_tables(dev)
     ms = {}
     fb, tail = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4,
                                        "bf16x2w", 1.0, dev)
     ms["K1 bf16x2w"] = _cuda_ms(lambda: fused.filterbank_bf16x2w(*fb))
     y = fused.filterbank_bf16x2w(*fb)
     ms["K2 demod_tail"] = _cuda_ms(lambda: fused.demod_tail(y, *tail))
+    bits, hit, _ = fused.demod_tail(y, *tail)
+    pos = earliest_hits(hit, 16)[0]
+    ms["K4 40x16"] = _device_ms(lambda: decode_candidates(bits, pos, whiten, crc, adv, 4),
+                                "decode_candidates_kernel")
+    one = (bits[:1].contiguous(), pos[:1].contiguous(), whiten[:1], crc[:1], adv[:1])
+    ms["K4 1x16"] = _device_ms(lambda: decode_candidates(*one, 4), "decode_candidates_kernel")
+    fb, _ = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4, "f32", 1.0, dev)
+    ms["K3 f32"] = _cuda_ms(lambda: fused.filterbank_polyx_f32(*fb))
     for label, dtype, inner in (("K5 f32 im2col", "f32", "im2col"),
                                 ("K5 bf16", "bf16", None)):
         fb, _ = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4,

@@ -295,10 +295,10 @@ def hilo_warps_m(ky: int, sms: int) -> int:
 
 
 def sgemm_warps(ky: int, sms: int) -> int:
-    """The FP32 filterbank's column tile in 32-column warps (8, 4 or 2):
-    the widest whose grid still gives each of ``sms`` SMs a CTA (each CTA
-    streams all the weights, so wider is better while every SM has
-    work)."""
+    """The FP32 filterbanks' column tile in 32-column warps (8, 4 or 2),
+    K5 at "f32" and K3 alike: the widest whose grid still gives each of
+    ``sms`` SMs a CTA (each CTA streams all the weights, so wider is
+    better while every SM has work)."""
     warps = 8
     while warps > 2 and -(-ky // (32 * warps)) < sms:
         warps //= 2
@@ -461,19 +461,34 @@ def filterbank_polyx_f32_reference(f4, kcoefx, w4x, ky: int,
 def filterbank_polyx_f32(f4, kcoefx, w4x, ky: int, stack: int = POLYX_STACK):
     """(stack*40, J) float32 stacked pre-shifted frames (J at least
     ky + stack*(n_slices-1)), kcoefx (stack*40, n_slices) and the
-    (80, stack*40) DFT -> y (80, ky) float32, in true FP32."""
+    (80, stack*40) DFT -> y (80, ky) float32, in true FP32. The kernel
+    takes 80 stacked rows at stack 1 or 2 (the scan's stack 2, the K8
+    probe's 80 rows at stack 1)."""
     if f4.device.type == "cpu":
         return filterbank_polyx_f32_reference(f4, kcoefx, w4x, ky, stack)
     _check_cuda("filterbank_polyx_f32", f4, kcoefx, w4x)
     rows, n_slices = kcoefx.shape
-    if (f4.dtype != torch.float32 or f4.shape[0] != rows
+    if (f4.dtype != torch.float32 or kcoefx.dtype != torch.float32
+            or w4x.dtype != torch.float32 or f4.shape[0] != rows
+            or rows != 2 * M or stack not in (1, 2)
             or f4.shape[1] < ky + stack * (n_slices - 1)
             or tuple(w4x.shape) != (2 * M, rows)):
-        raise ValueError("filterbank_polyx_f32: bad shapes or dtype")
+        raise ValueError("filterbank_polyx_f32: bad shapes, dtype or stack")
     y = torch.empty((2 * M, ky), dtype=torch.float32, device=f4.device)
     FILTERBANK_POLYX_F32.launch(f4, kcoefx, w4x, y, f4.shape[1], ky, rows,
-                                n_slices, stack)
+                                n_slices, stack,
+                                sgemm_warps(ky, _sm_count(f4.device)))
     return y
+
+
+def polyx_plan(ky: int, n_slices: int, stack: int, device) -> dict:
+    """K3's launch shape at ``ky`` columns on ``device`` (a CUDA device):
+    its column tile (``sgemm_warps``), dynamic shared memory, resident CTAs
+    per SM and the persistent grid (``_build.PLAN_KEYS``)."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        return FILTERBANK_POLYX_F32.plan(ky, n_slices, stack,
+                                         sgemm_warps(ky, _sm_count(dev)))
 
 
 def demod_tail_reference(y, aa_rows, aa_mask, sps: int, lag: int,

@@ -10,10 +10,11 @@ JSON line per phase:
   1. build: seconds to compile the kernels (one nvcc per source, in
      parallel) and each kernel's ptxas register / shared-memory report;
      the tensor-core filterbank (K1, K5 f32x2 and bf16), the FP32 SGEMM
-     filterbank (K5 f32), the demod tail (K2) and shift_fma (K10) must
-     not spill; the launch shapes (dynamic shared memory, resident CTAs
-     per SM, grid) of K5 f32 at bench geometry and of K10 at its three
-     (R, N, STEP);
+     filterbank (K5 f32), the polyphase filterbank (K3), the demod tail
+     (K2), the candidate decode (K4) and shift_fma (K10) must not spill;
+     the launch shapes (dynamic shared memory, resident CTAs per SM, grid)
+     of K5 f32 and K3 at bench geometry, K3 at the live block, K4 at 40 x
+     16 and 1 x 16 and of K10 at its three (R, N, STEP);
   2. kernels: each kernel against its plain PyTorch twin on the card, on
      one bench-geometry block with packets in it (131072 + 1476 channel
      samples, 1280-tap prototype, 16 candidate slots), the filterbank in
@@ -79,11 +80,12 @@ JSON line per phase:
      blocks (as bench.py), median Msps per CLI mode, the clocks right
      after; per-kernel time, its
      twin's time, the bound, and for each filterbank one cuDNN
-     convolution computing the same y as yardstick (K5 f32 and K10 also
-     with their CUDA-event trials and launch shapes, K1, K5 bf16 and K2
-     with their ptxas reports); K1, K5 bf16 and K2 also at the live
-     block's shape (8192 + halo columns: the twin, ms, CTAs, bound,
-     yardstick); the narrowband
+     convolution computing the same y as yardstick (K5 f32, K3, K4 and K10
+     also with their CUDA-event trials and launch shapes, K1, K5 bf16,
+     K3, K2 and K4 with their ptxas reports; K4 also at the narrowband 1 x
+     16, beside an empty kernel's device time, the launch floor); K1, K5
+     bf16, K3, K2 and K4 also at the live block's shape (8192 + halo
+     columns: the twin, ms, CTAs, bound, yardstick); the narrowband
      real-time factor (air seconds per wall second, median of 3 runs)
      at both block sizes; then a torch.profiler trace of 8 scan steps
      per mode: device time by kernel and the device's idle share; each
@@ -520,14 +522,26 @@ def filterbank_library_calls(operands) -> dict:
     calls = {name: hilo_library_call(operands[name][0])
              for name in ("filterbank_bf16x2w", "filterbank_im2col_f32x2",
                           "filterbank_im2col_bf16")}
-    frames, gk, width = operands["filterbank_im2col_f32"][0][:3]
-    w = gk.permute(2, 0, 1)[:, :, :width].contiguous()      # the (40, S, 80) table
+    call = f32_library_call(operands["filterbank_im2col_f32"][0])
+    calls["filterbank_im2col_f32"] = calls["filterbank_polyx_f32"] = call
+    return calls
+
+
+def f32_library_call(fb_args):
+    """The cuDNN yardstick of the true-FP32 filterbanks (K5 "f32", K3): the
+    (40, J) float32 frames of the "f32" im2col operands convolved with the
+    (40, S, 80) table unfolded to (80, 40, width) weights."""
+    import torch
+
+    from btle_tpu_torch.wideband.channelizer import true_fp32
+
+    frames, gk, width = fb_args[:3]
+    w = gk.permute(2, 0, 1)[:, :, :width].contiguous()
 
     def call(x=frames[None], w=w):
         with true_fp32():
             return torch.nn.functional.conv1d(x, w)[0]
-    calls["filterbank_im2col_f32"] = calls["filterbank_polyx_f32"] = call
-    return calls
+    return call
 
 
 def hilo_library_call(fb_args):
@@ -589,20 +603,21 @@ def tail_bound(y, n_bits: int, n_hit: int) -> dict:
 
 
 def time_live(dev) -> dict:
-    """K1, K5 at "bf16" and K2 at the live block's shape (the CLI's
+    """K1, K5 at "bf16", K3, K2 and K4 at the live block's shape (the CLI's
     8192-sample blocks, 1279 samples of filter context, noise of std 30):
-    each filterbank within 1e-5 of max |y| of its twin, K2 bit for bit on
-    K1's y; device time, grid, bound and yardstick of each."""
+    each filterbank within 1e-5 of max |y| of its twin, K2 and K4 bit for
+    bit on K1's y; device time, grid, bound and yardstick of each."""
     import torch
 
-    from btle_tpu_torch.rx.pipeline import required_halo
+    from btle_tpu_torch.rx.decode_kernel import decode_candidates, decode_candidates_reference
+    from btle_tpu_torch.rx.pipeline import earliest_hits, required_halo
     from btle_tpu_torch.wideband import fused
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
     n = (WB_SCAN_LEN + required_halo(4, 4)) * 20 + NUM_TAPS - 1
     gen = torch.Generator(device=dev).manual_seed(9)
     xi, xq = (30.0 * torch.randn(n, generator=gen, device=dev) for _ in range(2))
-    aa, mask = default_scan_tables(dev)[:2]
+    aa, mask, whiten, crc, adv = default_scan_tables(dev)
     out = {}
     for name, mode, kernel, products in (
             ("filterbank_bf16x2w", "bf16x2w", fused.FILTERBANK_BF16X2W, 2),
@@ -636,14 +651,40 @@ def time_live(dev) -> dict:
         **kernel_times(fused.DEMOD_TAIL, lambda: fused.demod_tail(y_tail, *tail_args),
                        lambda: fused.demod_tail_reference(y_tail, *tail_args), 50),
         **tail_bound(y_tail, n_bits, n_hit)}
+
+    fb, _ = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4, "f32", 1.0, dev)
+    fb_im2col, _ = fused.frontend_operands(xi, xq, aa, mask, NUM_TAPS, True, 4, 4, "f32",
+                                           1.0, dev, "im2col")
+    y, y_ref = fused.filterbank_polyx_f32(*fb), fused.filterbank_polyx_f32_reference(*fb)
+    torch.cuda.synchronize()
+    err, scale = float((y - y_ref).abs().max()), float(y_ref.abs().max())
+    if not (err <= 1e-5 * scale and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"filterbank_polyx_f32 at the live shape: max |dy| {err} "
+                             f"at max |y| {scale}")
+    out["filterbank_polyx_f32"] = {
+        "columns": fb[3], "plan": fused.polyx_plan(fb[3], fb[1].shape[1], fb[4], dev),
+        "max_abs_err": err, "max_abs_y": scale,
+        **kernel_times(fused.FILTERBANK_POLYX_F32, lambda: fused.filterbank_polyx_f32(*fb),
+                       lambda: fused.filterbank_polyx_f32_reference(*fb), 50,
+                       library=f32_library_call(fb_im2col)),
+        "ms_trials": event_trials(lambda: fused.filterbank_polyx_f32(*fb), 50),
+        **polyx_bound(fb)}
+
+    bits = got[0]                          # K2's lattice at the live shape
+    dec = (bits, earliest_hits(got[1], MAX_CANDIDATES)[0], whiten, crc, adv)
+    if not all(torch.equal(g, w) for g, w in zip(decode_candidates(*dec, 4),
+                                                 decode_candidates_reference(*dec, 4))):
+        raise AssertionError("decode_candidates at the live shape disagrees with its twin")
+    out["decode_candidates"] = {"columns": bits.shape[1], **decode_times(dec)}
     return out
 
 
 # the sources whose ptxas report must show no spills: the tensor-core
 # filterbank (K1, K5 f32x2 and bf16), the FP32 SGEMM filterbank (K5 f32),
-# the demod tail (K2) and K10
-NO_SPILL_SOURCES = ("filterbank_hilo_mma", "filterbank_sgemm_f32", "demod_tail",
-                    "shift_fma")
+# the polyphase filterbank (K3), the demod tail (K2), the candidate decode
+# (K4) and K10
+NO_SPILL_SOURCES = ("filterbank_hilo_mma", "filterbank_sgemm_f32", "filterbank_polyx_f32",
+                    "demod_tail", "decode_candidates", "shift_fma")
 
 
 def ptxas_kernels(logs: dict) -> dict:
@@ -662,25 +703,32 @@ def ptxas_kernels(logs: dict) -> dict:
                 entries[name]["spill_loads"] = int(m.group(2))
             elif name and (m := re.search(r"Used (\d+) registers", ln)):
                 entries[name]["registers"] = int(m.group(1))
+                if (m := re.search(r"(\d+) bytes smem", ln)):
+                    entries[name]["smem_bytes"] = int(m.group(1))
         out[source] = entries
     return out
 
 
-def ptxas_of(ptx: dict, kernel) -> dict:
+def ptxas_of(ptx: dict, kernel, params=("warps_m",)) -> dict:
     """The ptxas entries of one kernel's instances (its ``<name>_kernel``
-    template), keyed by the instance's template arguments."""
+    template), keyed by the instance's template arguments named
+    ``params`` (e.g. "warps_m=4", "stack=2,warps=8", "clamp_tail=1")."""
     found = {}
     for fn, info in ptx.get(kernel.source_name, {}).items():
-        m = re.search(rf"{kernel.name}_kernel(ILi(\d+)EE)?", fn)
+        m = re.search(rf"{kernel.name}_kernel(?:I((?:L[ib]\d+E)+)E)?", fn)
         if m:
-            found[f"warps_m={m.group(2)}" if m.group(2) else kernel.name] = info
+            args = re.findall(r"L[ib](\d+)E", m.group(1) or "")
+            found[",".join(f"{p}={a}" for p, a in zip(params, args))
+                  if args else kernel.name] = info
     return found
 
 
 def launch_plans(dev) -> dict:
     """The launch shapes of the redesigned CUDA-core kernels at the shapes
     the timing phase gives them: dynamic shared memory, resident CTAs per
-    SM, grid, threads and columns per CTA (their sources' _plan entry)."""
+    SM, grid, threads and columns (K4: candidates) per CTA (their sources'
+    _plan entry): K5 f32 and K3 at bench geometry, K3 also at the live
+    block, K4 at the wideband 40 x 16 and the narrowband 1 x 16, K10."""
     import torch
 
     from btle_tpu_torch.rx.pipeline import required_halo
@@ -688,10 +736,17 @@ def launch_plans(dev) -> dict:
     from btle_tpu_torch.tools import dev_rollscale
     from btle_tpu_torch.wideband import fused
 
+    from btle_tpu_torch.rx.decode_kernel import DECODE_CANDIDATES
+
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ky = SCAN_LEN + required_halo(4, 4)     # the bench block's y columns
+    ky_live = WB_SCAN_LEN + required_halo(4, 4)
     out = {"filterbank_im2col_f32": fused.FILTERBANK_IM2COL["f32_im2col"].plan(
-        ky, 65, fused.sgemm_warps(ky, sms))}
+        ky, 65, fused.sgemm_warps(ky, sms)),
+        "filterbank_polyx_f32": fused.polyx_plan(ky, 33, 2, dev),
+        "filterbank_polyx_f32 live": fused.polyx_plan(ky_live, 33, 2, dev),
+        "decode_candidates 40x16": DECODE_CANDIDATES.plan(40, MAX_CANDIDATES),
+        "decode_candidates 1x16": DECODE_CANDIDATES.plan(1, MAX_CANDIDATES)}
     n_cols = dev_rollscale.N_TILES * dev_rollscale.T
     for rows, n, step, _ in dev_rollscale.CONFIGS[:3]:
         out[f"shift_fma R{rows}"] = K.SHIFT_FMA.plan(rows, n, step, n_cols, 1)
@@ -1595,8 +1650,6 @@ def kernel_times(kernel, fn, twin, reps: int, library=None) -> dict:
 
 def time_kernels(operands, decode_args, library) -> dict:
     """Per-kernel time, twin time, bound and yardstick at bench geometry."""
-    from btle_tpu_torch.rx.decode_kernel import (DECODE_CANDIDATES, decode_candidates,
-                                                 decode_candidates_reference)
     from btle_tpu_torch.wideband import fused
 
     out = {}
@@ -1630,16 +1683,14 @@ def time_kernels(operands, decode_args, library) -> dict:
             ky, width, fused.sgemm_warps(ky, fused._sm_count(frames.device))),
     }
     fb, _, _ = operands["filterbank_polyx_f32"]
-    f4, kcoefx, w4x, ky, _ = fb
-    rows, n_slices = kcoefx.shape
     out["filterbank_polyx_f32"] = {
         **kernel_times(fused.FILTERBANK_POLYX_F32,
                        lambda: fused.filterbank_polyx_f32(*fb),
                        lambda: fused.filterbank_polyx_f32_reference(*fb), 10,
                        library=library["filterbank_polyx_f32"]),
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            (f4.numel() + kcoefx.numel() + w4x.numel() + 80 * ky) * 4,
-            2 * rows * n_slices * ky + 2 * 80 * rows * ky, FP32_FLOPS))),
+        **polyx_bound(fb),
+        "ms_trials": event_trials(lambda: fused.filterbank_polyx_f32(*fb), 10),
+        "plan": fused.polyx_plan(fb[3], fb[1].shape[1], fb[4], fb[0].device),
     }
     _, tail, y = operands["filterbank_bf16x2w"]
     n_bits, n_hit = tail[4], tail[5]
@@ -1649,20 +1700,56 @@ def time_kernels(operands, decode_args, library) -> dict:
         "ms_trials": event_trials(lambda: fused.demod_tail(y, *tail), 20),
         "ctas": 40 * -(-n_bits // 2048), **tail_bound(y, n_bits, n_hit),
     }
+    out["decode_candidates"] = decode_times(decode_args)
+    # the narrowband path's shape: one channel's lattice, 16 slots
+    bits, pos, whiten, crc, adv = decode_args
+    out["decode_candidates"]["narrowband_1x16"] = decode_times(
+        (bits[:1].contiguous(), pos[:1].contiguous(), whiten[:1], crc[:1], adv[:1]))
+    out["decode_candidates"]["launch_floor_ms"] = launch_floor_ms()
+    return out
+
+
+def polyx_bound(fb) -> dict:
+    """bound_ms of K3: the stacked frames, the taps, the DFT and y moved
+    once; 2 FLOP per stacked FMA and per DFT term."""
+    f4, kcoefx, w4x, ky = fb[:4]
+    rows, n_slices = kcoefx.shape
+    return dict(zip(("bound_ms", "bound_by"), bound_ms(
+        (f4.numel() + kcoefx.numel() + w4x.numel() + 80 * ky) * 4,
+        2 * rows * n_slices * ky + 2 * 80 * rows * ky, FP32_FLOPS)))
+
+
+def decode_times(decode_args, reps: int = 50) -> dict:
+    """K4 on (bits, pos, whiten, crc, adv): profiler device time, CUDA-event
+    trials, its twin's time, its launch shape and its bound (window bits
+    read + tables + outputs; per candidate 336 xor/or and 42 x 8 three-op
+    CRC steps)."""
+    from btle_tpu_torch.rx.decode_kernel import (DECODE_CANDIDATES, decode_candidates,
+                                                 decode_candidates_reference)
+
     bits, pos, whiten, crc, adv = decode_args
     m, c = pos.shape
-    out["decode_candidates"] = {
+    return {
+        "shape": [m, c],
         **kernel_times(DECODE_CANDIDATES,
                        lambda: decode_candidates(bits, pos, whiten, crc, adv, 4),
                        lambda: decode_candidates_reference(bits, pos, whiten, crc,
-                                                           adv, 4), 50),
-        # window bits read + tables + outputs; per candidate 336 xor/or and
-        # 42 x 8 three-op CRC steps
+                                                           adv, 4), reps),
+        "ms_trials": event_trials(
+            lambda: decode_candidates(bits, pos, whiten, crc, adv, 4), reps),
+        "plan": DECODE_CANDIDATES.plan(m, c),
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
             m * c * 336 + m * c * 4 + m * 336 + m * 5 + m * c * (42 * 4 + 6),
             m * c * (2 * 336 + 3 * 336), FP32_FLOPS))),
     }
-    return out
+
+
+def launch_floor_ms() -> float:
+    """The profiler's device time of one empty kernel: the floor below
+    which no kernel's time can go, recorded beside K4."""
+    from btle_tpu_torch.tools._measure import launch_floor
+
+    return kernel_device_ms(launch_floor, "launch_floor_kernel", 50)[0]
 
 
 def probe_kernel_entries(dev, probes) -> list:
@@ -1913,6 +2000,10 @@ def main() -> int:
         per_kernel[name]["live"] = live
     for k in (fused.FILTERBANK_BF16X2W, fused.FILTERBANK_IM2COL["bf16"], fused.DEMOD_TAIL):
         per_kernel[k.name]["ptxas"] = ptxas_of(ptx, k)
+    per_kernel["filterbank_polyx_f32"]["ptxas"] = ptxas_of(
+        ptx, fused.FILTERBANK_POLYX_F32, ("stack", "warps"))
+    per_kernel["decode_candidates"]["ptxas"] = ptxas_of(
+        ptx, decode_kernel.DECODE_CANDIDATES, ("clamp_tail",))
     probe_entries = probe_kernel_entries(dev, probes)
     rtf = narrowband_rtf(dev, nb_i, nb_q)
     log({"phase": "timing", "scan": scans, "clocks_after_scan": clocks_after_scan,

@@ -10,8 +10,10 @@ end in both tail modes, every (compute_dtype, inner) pair of the fused
 front end (K1, K3, K5), the tensor-core filterbank (K1, K5 at "f32x2"
 and "bf16") at the live block's shape, each column tile, a ragged ky and
 frames shorter than ky + width - 1, the demod tail (K2) bit for bit at
-sps 1-8, odd lag, ragged tiles and the live and K8 shapes — every
-knob-matrix row's self-test, and the
+sps 1-8, odd lag, ragged tiles and the live and K8 shapes, K3 at each
+column tile, the live and K8 dma_mm shapes and against float64 at 33
+slices, K4 bit for bit at (40, 16) and (1, 16), sps 1-8, in both tail
+modes — every knob-matrix row's self-test, and the
 port's device path against its CPU path (wideband sniffer with and
 without connection following, its live ring loop, the narrowband
 sniffer). They import no JAX, so they
@@ -220,6 +222,171 @@ def test_f32_sgemm_plan_keeps_16_warps(dev):
     plan = fused.FILTERBANK_IM2COL["f32_im2col"].plan(ky, 65, warps)
     assert plan["tile_columns"] == 256 and plan["threads"] == 256
     assert plan["ctas_per_sm"] * plan["threads"] >= 16 * 32
+
+
+# K3 (the exact "f32" polyphase filterbank and "bf16"/poly on it)
+POLYX_KINDS = {"f32": ("f32", None), "bf16_poly": ("bf16", "poly")}
+
+
+@pytest.mark.parametrize("label,num_taps,sps,lag,ctx,n", HILO_CASES)
+@pytest.mark.parametrize("kind", sorted(POLYX_KINDS))
+def test_polyx_matches_twin(dev, kind, label, num_taps, sps, lag, ctx, n):
+    """K3 against its twin at stack 2: max |dy| within 1e-5 of max |y|,
+    one launch, at the live block's shape, at each column tile (64, 128,
+    256 columns, as K5 at "f32" picks them), at a ky no tile divides, at
+    sps 2 / lag 1, with filter context and at 640 taps (17 slices)."""
+    wi, wq = _scene(n % 1000, phy="2m" if sps == 2 else "1m", n=n)
+    xi, xq = torch.as_tensor(wi, device=dev), torch.as_tensor(wq, device=dev)
+    aa = torch.as_tensor(B.hex_to_bits("d6be898e"), device=dev)
+    mask = torch.ones(32, dtype=torch.int8, device=dev)
+    dtype, inner = POLYX_KINDS[kind]
+    fb_args, _ = fused.frontend_operands(xi, xq, aa, mask, num_taps, ctx, sps, lag,
+                                         dtype, 1.0, dev, inner)
+    ky = fb_args[3]
+    before = fused.FILTERBANK_POLYX_F32.launches
+    y = fused.filterbank_polyx_f32(*fb_args)
+    y_ref = fused.filterbank_polyx_f32_reference(*fb_args)
+    torch.cuda.synchronize()
+    assert fused.FILTERBANK_POLYX_F32.launches == before + 1
+    assert y.shape == (80, ky) and bool(torch.isfinite(y).all())
+    assert (y - y_ref).abs().max() <= 1e-5 * y_ref.abs().max()
+    plan = fused.polyx_plan(ky, fb_args[1].shape[1], 2, dev)
+    tile = plan["tile_columns"]
+    assert tile == {"live": 64, "tile128": 128, "tile256": 256}.get(label, tile)
+    assert plan["ctas"] == min(-(-ky // tile), plan["ctas_per_sm"] *
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+    if label == "ragged":
+        assert ky % 64
+
+
+def test_polyx_plan_keeps_16_warps(dev):
+    """K3 at bench geometry: 256-column tiles in CTAs of 8 warps, two
+    resident per SM, a persistent grid of two CTAs per SM; at the live
+    block 64-column tiles, one CTA per tile."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bench = fused.polyx_plan(131_072 + 1476, 33, 2, dev)
+    assert bench["tile_columns"] == 256 and bench["threads"] == 256
+    assert bench["ctas_per_sm"] * bench["threads"] >= 16 * 32
+    assert bench["ctas"] == bench["ctas_per_sm"] * sms
+    live = fused.polyx_plan(8192 + 1476, 33, 2, dev)
+    assert live["tile_columns"] == 64 and live["ctas"] == -(-(8192 + 1476) // 64)
+
+
+def test_polyx_dma_mm_probe_shape(dev):
+    """K3 at the K8 dma_mm probe's operands (80 rows, stack 1, one slice,
+    W = I): y equals the frames' first ky columns exactly."""
+    from btle_tpu_torch.tools import dev_aagrp_bisect
+
+    _, _, y_i, y_q = dev_aagrp_bisect.make_inputs()
+    frames = torch.as_tensor(dev_aagrp_bisect.dma_frames(y_i, y_q), device=dev)
+    ones = torch.ones((80, 1), device=dev)
+    eye = torch.eye(80, device=dev)
+    ky = frames.shape[1]
+    y = fused.filterbank_polyx_f32(frames, ones, eye, ky, stack=1)
+    y_ref = fused.filterbank_polyx_f32_reference(frames, ones, eye, ky, stack=1)
+    torch.cuda.synchronize()
+    assert torch.equal(y, frames) and torch.equal(y_ref, frames)
+
+
+def test_polyx_stacked_slices_are_a_true_fp32_product(dev):
+    """K3 at stack 2 with 33 slices and random taps, against the two sums
+    in float64: within 1e-5 of max |want| (true FP32 throughout; a TF32
+    or bf16 pass would miss by ~1e-3)."""
+    rng = np.random.default_rng(33)
+    ky, n_slices = 5000, 33
+    f = rng.normal(size=(80, ky + 2 * (n_slices - 1))).astype(np.float32)
+    kc = rng.normal(size=(80, n_slices)).astype(np.float32)
+    w = rng.normal(size=(80, 80)).astype(np.float32)
+    y = fused.filterbank_polyx_f32(*(torch.as_tensor(a, device=dev) for a in (f, kc, w)),
+                                   ky, stack=2)
+    torch.cuda.synchronize()
+    f64 = f.astype(np.float64)
+    acc = sum(f64[:, 2 * j: 2 * j + ky] * kc[:, j: j + 1].astype(np.float64)
+              for j in range(n_slices))
+    want = w.astype(np.float64) @ acc
+    assert np.abs(y.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_polyx_rejects_unsupported_operands(dev):
+    f = torch.zeros((80, 5000), device=dev)
+    kc = torch.ones((80, 33), device=dev)
+    w = torch.eye(80, device=dev)
+    for bad in (dict(stack=3), dict(stack=4)):
+        with pytest.raises(ValueError):
+            fused.filterbank_polyx_f32(f, kc, w, 4000, **bad)
+    with pytest.raises(ValueError):          # 40 stacked rows
+        fused.filterbank_polyx_f32(f[:40].contiguous(), kc[:40].contiguous(),
+                                   w[:, :40].contiguous(), 4000, stack=1)
+    with pytest.raises(ValueError):          # J too short for the slices
+        fused.filterbank_polyx_f32(f, kc, w, 4970, stack=2)
+
+
+# K4: (M, C) shapes of the wideband and narrowband paths
+DECODE_SHAPES = [(40, 16), (1, 16)]
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("sps", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,c", DECODE_SHAPES)
+def test_decode_candidates_bit_exact(dev, m, c, sps, clamp):
+    """K4 torch.equal to its twin in both tail modes: random lattices with
+    real packets at some positions, positions at the lattice's last bit
+    and past it, negative positions, windows running off the end, and
+    advertising and data channels; one launch."""
+    from btle_tpu_torch.spec.crc24 import lfsr_init_to_table_init
+
+    rng = np.random.default_rng(100 * sps + m + clamp)
+    kb = 6000 + 37 * sps
+    lattice = rng.integers(0, 2, (m, kb)).astype(np.int8)
+    chans = [(37, 3, 38, 9, 20)[k % 5] for k in range(m)]
+    whiten = np.stack([W.whitening_bits(ch, 336) for ch in chans]).astype(np.int8)
+    crc = np.array([lfsr_init_to_table_init("555555")] * m, np.int32)
+    adv = np.array([ch in (37, 38, 39) for ch in chans])
+    pos = rng.integers(0, kb, (m, c)).astype(np.int32)
+    for r in range(m):       # a CRC-OK packet at slot 0: its dewhitened bits
+        pdu = _adv_pdu(rng, 9) if adv[r] else np.concatenate(
+            [[0x01, 9], rng.integers(0, 256, 9)]).astype(np.uint8)
+        phy = assemble_phy_bits(B.bytes_to_bits(pdu), chans[r], phy="1m")
+        body = phy[8 + 32:]                   # past the preamble and the AA
+        p0 = 200
+        idx = p0 + 32 * sps + np.arange(len(body)) * sps
+        lattice[r, idx] = body
+        pos[r, 0] = p0
+    pos[:, 1] = kb - 1
+    pos[:, 2] = kb
+    pos[:, 3] = kb + 100
+    pos[:, 4] = -5
+    pos[:, 5] = -32 * sps - 40
+    pos[:, 6] = kb - 150 * sps
+    args = [torch.as_tensor(a, device=dev) for a in (lattice, pos, whiten, crc, adv)]
+    before = DECODE_CANDIDATES.launches
+    got = decode_candidates(*args, sps=sps, clamp_tail=clamp)
+    want = decode_candidates_reference(*args, sps, clamp)
+    torch.cuda.synchronize()
+    assert DECODE_CANDIDATES.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    assert bool((got[2] & got[3])[:, 0].all())          # the packets CRC-OK
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("m,c", DECODE_SHAPES)
+def test_decode_candidates_all_slots_invalid(dev, m, c, clamp):
+    """No hit anywhere: earliest_hits gives every slot position 0 and
+    valid False; K4 decodes those windows exactly as its twin does."""
+    from btle_tpu_torch.rx.pipeline import earliest_hits
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    bits = torch.randint(0, 2, (m, 3000), generator=gen, device=dev, dtype=torch.int8)
+    pos, valid, _ = earliest_hits(torch.zeros((m, 2800), dtype=torch.bool, device=dev), c)
+    assert not bool(valid.any()) and not bool(pos.any())
+    whiten = torch.randint(0, 2, (m, 336), generator=gen, device=dev, dtype=torch.int8)
+    crc = torch.randint(0, 1 << 24, (m,), generator=gen, device=dev, dtype=torch.int32)
+    adv = torch.arange(m, device=dev) % 2 == 0
+    got = decode_candidates(bits, pos, whiten, crc, adv, 4, clamp)
+    want = decode_candidates_reference(bits, pos, whiten, crc, adv, 4, clamp)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("label,cfg,expected", knobmatrix.config_matrix())

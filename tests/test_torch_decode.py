@@ -121,3 +121,65 @@ def test_reference_is_cpu_path_only():
         assert torch.equal(r, g)
     with pytest.raises(ValueError):
         decode_candidates(args[0].to("meta"), *args[1:], sps=4)
+
+
+def _warp_schedule_model(lattice, pos, whiten, crc_init, adv, sps, clamp):
+    """numpy model of csrc/decode_candidates.cu's schedule for one
+    candidate: the 11 ballot words (bit l of word w = dewhitened window
+    bit 32w + l, zero past bit 336), bytes cut from the words, the
+    header's length, and the CRC walked one table lookup per byte over a
+    table built by 8 reflected LFSR steps per entry (the CTA prologue)."""
+    table = np.zeros(256, np.uint32)
+    for b in range(256):
+        c = b
+        for _ in range(8):
+            c = (c >> 1) ^ 0xDA6000 if c & 1 else c >> 1
+        table[b] = c
+    kb = lattice.shape[0]
+    p = int(pos) if clamp else min(max(int(pos), 0), kb - 1)
+    i = np.arange(352)
+    idx = p + 32 * sps + i * sps
+    if clamp:
+        raw = lattice[np.clip(idx, 0, kb - 1)].astype(np.int64)
+    else:
+        raw = np.where(idx < kb, lattice[np.minimum(idx, kb - 1)], 0).astype(np.int64)
+    bit = np.where(i < 336, (raw ^ np.pad(whiten.astype(np.int64), (0, 16))) & 1, 0)
+    words = [sum(int(bit[32 * w + lane]) << lane for lane in range(32)) for w in range(11)]
+
+    def byte(b):
+        return (words[b >> 2] >> (8 * (b & 3))) & 0xFF
+
+    plen = byte(1) & (63 if adv else 31)
+    plen_c = min(plen, 37)
+    crc = int(crc_init) & 0xFFFFFF
+    for b in range(plen_c + 2):
+        crc = int(table[(crc ^ byte(b)) & 0xFF]) ^ (crc >> 8)
+    rcv = byte(plen_c + 2) | byte(plen_c + 3) << 8 | byte(plen_c + 4) << 16
+    return table, [byte(b) for b in range(42)], plen, crc == rcv, crc
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("sps", [1, 2, 4, 8])
+def test_warp_schedule_model_matches_twin_and_jax_crc(sps, clamp):
+    """The kernel's warp formulation (ballot words, byte walk over an
+    in-kernel table) gives the twin's bytes, length and CRC verdict on
+    random candidates, positions before, at and past the lattice end; its
+    table is btle_tpu.spec.crc24's, and its CRC state is
+    crc24_bytes over the header and payload."""
+    from btle_tpu.spec.crc24 import crc24_bytes
+
+    bits, pos, whiten, crc, adv = _inputs(sps, kb=3000, c=6)
+    pos[:, 0] = -40
+    pos[:, 1] = 2999
+    pos[:, 2] = 3100
+    args = [torch.as_tensor(a) for a in (bits, pos, whiten, crc, adv)]
+    pkt, plen, match, _ = decode_candidates_reference(*args, sps=sps, clamp_tail=clamp)
+    for m in range(0, 40, 3):
+        for c in range(pos.shape[1]):
+            table, got, g_plen, g_match, state = _warp_schedule_model(
+                bits[m], pos[m, c], whiten[m], crc[m], bool(adv[m]), sps, clamp)
+            assert got == pkt[m, c].tolist()
+            assert g_plen == int(plen[m, c]) and g_match == bool(match[m, c])
+            span = min(g_plen, 37) + 2
+            assert state == crc24_bytes(np.asarray(got[:span], np.uint8), int(crc[m]))
+    np.testing.assert_array_equal(table, CRC24_TABLE)

@@ -247,6 +247,32 @@ def test_sgemm_tile_follows_the_grid(ky, sms, warps):
     assert got == 8 or -(-ky // (64 * got)) < sms
 
 
+@pytest.mark.parametrize("blocks,warps", [(131_072, 8), (8192, 2), (24_000, 4)])
+def test_polyx_operands_fit_the_kernel_and_tile(blocks, warps):
+    """K3's operands from frontend_operands at "f32" (the bench block, the
+    CLI's live block, a mid size): 80 stacked rows at stack 2, the
+    contiguous float32 frames long enough for every slice, and the column
+    tile the wrapper launches (sgemm_warps on 132 SMs) — 256 columns at
+    bench geometry, 64 at the live block, where the grid still gives every
+    SM a tile."""
+    from btle_tpu_torch.rx.pipeline import required_halo
+    from btle_tpu_torch.wideband.fused import frontend_operands, sgemm_warps
+
+    n = (blocks + required_halo(4, 4)) * 20 + 1279
+    rng = np.random.default_rng(blocks)
+    wi, wq = (torch.as_tensor(rng.normal(0, 30, n).astype(np.float32)) for _ in range(2))
+    (f4, kcoefx, w4x, ky, stack), _ = frontend_operands(
+        wi, wq, torch.zeros(32, dtype=torch.int8), torch.ones(32, dtype=torch.int8),
+        1280, True, 4, 4, "f32", 1.0, torch.device("cpu"))
+    rows, n_slices = kcoefx.shape
+    assert (rows, n_slices, stack) == (80, 33, 2) and tuple(w4x.shape) == (80, 80)
+    assert f4.dtype == torch.float32 and f4.is_contiguous()
+    assert f4.shape == (80, ky + stack * (n_slices - 1))
+    assert ky == blocks + required_halo(4, 4)
+    got = sgemm_warps(ky, 132)
+    assert got == warps and -(-ky // (32 * got)) >= 132
+
+
 @pytest.mark.parametrize("inner", ["im2col", "im2colp", "dots"])
 def test_f32_im2col_operands_are_the_sgemm_table(inner):
     """frontend_operands at "f32" with an im2col-form inner hands K5 the
