@@ -63,7 +63,8 @@ _SIGNATURES = {
 }
 # the kernels whose source also exports btle_<name>_plan(..., int info[5]):
 # the launch shape a call would take, read back as PLAN_KEYS (the last is
-# columns per CTA, or candidates per CTA for decode_candidates)
+# columns per CTA, or candidates per CTA for decode_candidates and
+# positions per CTA for scan_block)
 _PLAN_SIGNATURES = {
     # rows, n, step, n_cols, 16-byte copies
     "shift_fma": "iiili",
@@ -73,6 +74,10 @@ _PLAN_SIGNATURES = {
     "filterbank_polyx_f32": "iiii",
     # M, C
     "decode_candidates": "ii",
+    # rows, n_out, sps, grp, is_int8
+    "aa_corr": "iliii",
+    # rows, N, sps, lag, is_float
+    "scan_block": "iliii",
 }
 PLAN_KEYS = ("smem_bytes", "ctas_per_sm", "ctas", "threads", "tile_columns")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}

@@ -71,6 +71,14 @@ def scan_block_kernel(i, q, aa_bits, aa_mask, sps: int, lag: int):
     return hit, bits
 
 
+def scan_block_plan(rows: int, n: int, sps: int, lag: int, floats: bool) -> dict:
+    """The launch shape ``scan_block_kernel`` takes for (rows, n) IQ rows
+    (float32 if ``floats``, else int16): dynamic shared memory, resident
+    CTAs per SM, grid, threads and positions per CTA
+    (``_build.PLAN_KEYS``)."""
+    return SCAN_BLOCK.plan(rows, n, sps, lag, int(floats))
+
+
 def scan_block(i, q, aa_bits, aa_mask, sps: int, lag: int):
     """(hit_mask, bit_lattice) of (C, N) IQ rows (or one (N,) row):
     hit_mask[c, n] is True iff an access address starts at lattice

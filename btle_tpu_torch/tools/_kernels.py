@@ -69,6 +69,15 @@ def aa_corr(s, w, sps: int, n_out: int, grp: int = 8, n_mask: int = AA_BITS):
     return acc, hit
 
 
+def aa_corr_plan(s, sps: int, n_out: int, grp: int = 8) -> dict:
+    """The launch shape ``aa_corr`` takes for this (rows, L) lattice:
+    dynamic shared memory, resident CTAs per SM, grid, threads and output
+    columns per tile (``_build.PLAN_KEYS``): the wide tile (persistent
+    CTAs; sps 1, 2, 4 and 8) while its tiles give every SM two CTAs, else
+    the narrow one (256 columns, one CTA each)."""
+    return AA_CORR.plan(s.shape[0], n_out, sps, grp, int(s.dtype == torch.int8))
+
+
 def shift_stack_reference(s, grp: int, sps: int, k0: int = 0):
     """Plain twin of ``shift_stack``: row group r is the lattice rolled
     left by k0 + sps*(grp-1-r) columns (``np.roll``'s wrap-around)."""

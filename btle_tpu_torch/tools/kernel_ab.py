@@ -17,15 +17,24 @@ its TREE first on ``sys.path``, builds that tree's kernels and times them
     (``decode_candidates`` on K2's lattice at the 16 earliest hits of
     each channel, 40 x 16, and of one channel, 1 x 16);
   - K11 f32 and bf16 (``dev_roll_experiment.run``, im2col-copy at 64
-    tiles);
-  - K10 at R = 40, 80 and 160 (``dev_rollscale.run``, 64 tiles).
+    tiles) and the K11 AA stage (``run(which="aa")``, aa-fma exact against
+    the tool's truth, then ``aa_corr`` timed at 40 x 131072, f32 +-1
+    lattice, sps 4, grp 1);
+  - K10 at R = 40, 80 and 160 (``dev_rollscale.run``, 64 tiles);
+  - K8's AA stage (``aa_corr`` on 40 x 2172 int8 decisions, T = 2048,
+    sps 4, grp 8);
+  - K7 (``scan_block_kernel``, sps 4) at the narrowband block (1 x 131072
+    + 1473 int16, lag 1), the live block (1 x 8192 + 1473 int16, lag 1)
+    and 40 float rows of a bench block (40 x 131072 + 1476 float32, lag 4).
 
 Times are CUDA events, the median of 5 trials of 20 launches (K1-K3, K5)
-or of the probes' own trials. K4 is timed by the profiler's device time
-over 50 launches: its wrapper's host work takes longer than the kernel, so
-events around back-to-back calls would time the host. Each child prints one JSON line: the tree, the
-card's name and power limit, and {kernel: ms}; the parent process prints
-them again as one JSON list on its last line. It needs a CUDA card.
+or of the probes' own trials. K4, K7 and the AA stages of K8 and K11 are
+timed by the profiler's device time over 50 launches: their wrappers'
+host work takes about as long as the kernel or longer, so events around
+back-to-back calls would time the host. Each child prints one JSON line:
+the tree, the card's name and power limit, and {kernel: ms}; the parent
+process prints them again as one JSON list on its last line. It needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -82,9 +91,11 @@ def child(tree: str) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
+    from btle_tpu_torch.phy.scan_kernel import scan_block_kernel
     from btle_tpu_torch.rx.decode_kernel import decode_candidates
     from btle_tpu_torch.rx.pipeline import earliest_hits, required_halo
     from btle_tpu_torch.tools import dev_roll_experiment, dev_rollscale
+    from btle_tpu_torch.tools._kernels import aa_corr
     from btle_tpu_torch.wideband import fused
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
@@ -125,11 +136,32 @@ def child(tree: str) -> dict:
         if res["failures"]:
             raise AssertionError(f"K11 {dtype}: {res['failures']} failures")
         ms[f"K11 {dtype}"] = res["variants"]["im2col-copy"]["ms"]
+    res = dev_roll_experiment.run(dev, which="aa", iters=20, trials=5)
+    if res["failures"] or not res["variants"]["aa-fma"]["exact"]:
+        raise AssertionError(f"K11 aa: {res['failures']} failures")
+    n11 = dev_roll_experiment.N_TILES * dev_roll_experiment.T
+    lat = 2.0 * torch.randint(0, 2, (40, n11 + 128), generator=gen, device=dev) - 1.0
+    w11 = 2.0 * torch.randint(0, 2, (40, 32), generator=gen, device=dev) - 1.0
+    ms["K11 aa-fma"] = _device_ms(lambda: aa_corr(lat, w11, 4, n11, grp=1), "aa_corr_kernel")
     res = dev_rollscale.run(dev, configs=dev_rollscale.CONFIGS[:3], iters=20, trials=5)
     if res["failures"]:
         raise AssertionError(f"K10: {res['failures']} failures")
     for r in res["configs"].values():
         ms[f"K10 R{r['rows']}"] = r["ms"]
+    dec = torch.randint(0, 2, (40, 2048 + 31 * 4), generator=gen, device=dev).to(torch.int8)
+    signs = (2.0 * torch.randint(0, 2, (40, 32), generator=gen, device=dev) - 1.0)
+    ms["K8 aa_only"] = _device_ms(lambda: aa_corr(dec, signs, 4, 2048, grp=8),
+                                  "aa_corr_kernel")
+    for label, rows, n, lag, dtype in (("narrowband", 1, SCAN_LEN + required_halo(4, 1), 1,
+                                        torch.int16),
+                                       ("live", 1, 8192 + required_halo(4, 1), 1, torch.int16),
+                                       ("float rows 40", 40, SCAN_LEN + required_halo(4, 4), 4,
+                                        torch.float32)):
+        i, q = (torch.randint(-2000, 2001, (rows, n), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        ms[f"K7 {label}"] = _device_ms(
+            lambda i=i, q=q, lag=lag: scan_block_kernel(i, q, aa, mask, 4, lag),
+            "scan_block_kernel")
     return {"tree": tree, "nvidia_smi": smi, "ms": ms}
 
 

@@ -11,7 +11,9 @@ JSON line per phase:
      parallel) and each kernel's ptxas register / shared-memory report;
      the tensor-core filterbank (K1, K5 f32x2 and bf16), the FP32 SGEMM
      filterbank (K5 f32), the polyphase filterbank (K3), the demod tail
-     (K2), the candidate decode (K4) and shift_fma (K10) must not spill;
+     (K2), the candidate decode (K4), shift_fma (K10), the AA
+     correlation (aa_corr: K8, K9, K11) and the narrowband scan (K7) must
+     not spill;
      the launch shapes (dynamic shared memory, resident CTAs per SM, grid)
      of K5 f32 and K3 at bench geometry, K3 at the live block, K4 at 40 x
      16 and 1 x 16 and of K10 at its three (R, N, STEP);
@@ -85,12 +87,16 @@ JSON line per phase:
      K3, K2 and K4 with their ptxas reports; K4 also at the narrowband 1 x
      16, beside an empty kernel's device time, the launch floor); K1, K5
      bf16, K3, K2 and K4 also at the live block's shape (8192 + halo
-     columns: the twin, ms, CTAs, bound, yardstick); the narrowband
+     columns: the twin, ms, CTAs, bound, yardstick); K7 bit for bit and
+     timed at the narrowband file block, the live 8192-sample block and
+     the 40 float channel rows of the wideband block, with its launch
+     shape and ptxas report; the narrowband
      real-time factor (air seconds per wall second, median of 3 runs)
      at both block sizes; then a torch.profiler trace of 8 scan steps
      per mode: device time by kernel and the device's idle share; each
      probe kernel at its probe's shape (K8-K11 on aa_corr, shift_stack,
-     shift_fma, K2, K3 and K5);
+     shift_fma, K2, K3 and K5; aa_corr with its launch shape and ptxas
+     report);
   8. the {"kernels": [...]} summary, K1-K11 (``k`` names the PERF.md
      rows each entry carries).
 
@@ -682,9 +688,11 @@ def time_live(dev) -> dict:
 # the sources whose ptxas report must show no spills: the tensor-core
 # filterbank (K1, K5 f32x2 and bf16), the FP32 SGEMM filterbank (K5 f32),
 # the polyphase filterbank (K3), the demod tail (K2), the candidate decode
-# (K4) and K10
+# (K4), K10, the AA correlation (K8, K9, K11) and the narrowband scan (K7)
 NO_SPILL_SOURCES = ("filterbank_hilo_mma", "filterbank_sgemm_f32", "filterbank_polyx_f32",
-                    "demod_tail", "decode_candidates", "shift_fma")
+                    "demod_tail", "decode_candidates", "shift_fma", "aa_corr", "scan_block")
+# the Itanium-mangled names of the template type arguments
+MANGLED_TYPES = {"f": "float", "a": "int8", "s": "int16"}
 
 
 def ptxas_kernels(logs: dict) -> dict:
@@ -712,12 +720,14 @@ def ptxas_kernels(logs: dict) -> dict:
 def ptxas_of(ptx: dict, kernel, params=("warps_m",)) -> dict:
     """The ptxas entries of one kernel's instances (its ``<name>_kernel``
     template), keyed by the instance's template arguments named
-    ``params`` (e.g. "warps_m=4", "stack=2,warps=8", "clamp_tail=1")."""
+    ``params`` (e.g. "warps_m=4", "stack=2,warps=8", "clamp_tail=1",
+    "lattice=int8,grp=8,sps=4")."""
     found = {}
     for fn, info in ptx.get(kernel.source_name, {}).items():
-        m = re.search(rf"{kernel.name}_kernel(?:I((?:L[ib]\d+E)+)E)?", fn)
+        m = re.search(rf"{kernel.name}_kernel(?:I((?:[fas]|L[ib]\d+E)+)E)?", fn)
         if m:
-            args = re.findall(r"L[ib](\d+)E", m.group(1) or "")
+            args = [num or MANGLED_TYPES[t]
+                    for num, t in re.findall(r"L[ib](\d+)E|([fas])", m.group(1) or "")]
             found[",".join(f"{p}={a}" for p, a in zip(params, args))
                   if args else kernel.name] = info
     return found
@@ -1401,7 +1411,8 @@ def check_narrowband_kernels(dev, nb_block, wb_operands) -> dict:
     on the int16 narrowband block at sps 4 / lag 1, on it with an all-zero
     care mask, at sps 8 / lag 8, and on the wideband block's 40 float
     channel rows with per-row access addresses; the candidate decode with
-    clamped tails against its twin on candidates at the lattice's end."""
+    clamped tails against its twin on candidates at the lattice's end.
+    Returns (report, the four cases' arguments)."""
     import torch
 
     from btle_tpu_torch.phy.scan_kernel import scan_block_kernel, scan_block_reference
@@ -1472,25 +1483,36 @@ def check_narrowband_kernels(dev, nb_block, wb_operands) -> dict:
                                               "crc_ok": n_ok, "mismatches": 0}
     if n_ok < 3:
         raise AssertionError(f"only {n_ok} CRC-OK candidates in the narrowband block")
-    return report, cases["int16_sps4_lag1"]
+    return report, cases
 
 
 def time_scan_kernel(args) -> dict:
-    """K7 at the narrowband block: device time, twin time and its bound
-    (i and q read once, bits and hits written once; per decision two
-    products and a difference, per hit position 32 gathered bits, an xor,
-    an and and a compare)."""
-    from btle_tpu_torch.phy.scan_kernel import SCAN_BLOCK, scan_block_kernel, scan_block_reference
+    """K7 on ``args`` (i, q, AA rows, care mask, sps, lag): bit for bit
+    against its twin, then its device time, twin time, launch shape and
+    bound (i and q read once, bits and hits written once; per decision two
+    products and a difference, per hit position 32 window bits, an xor, an
+    and and a compare)."""
+    import torch
+
+    from btle_tpu_torch.phy.scan_kernel import (SCAN_BLOCK, scan_block_kernel,
+                                                scan_block_plan, scan_block_reference)
 
     i = args[0]
+    rows = i.shape[0] if i.ndim == 2 else 1
     sps, lag = args[4], args[5]
     n = i.shape[-1]
     n_bits, n_hit = n - lag, n - lag - 31 * sps
-    return {**kernel_times(SCAN_BLOCK, lambda: scan_block_kernel(*args),
+    got, want = scan_block_kernel(*args), scan_block_reference(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"scan_block at {rows} x {n} disagrees with its twin")
+    return {"shape": [rows, n], "sps": sps, "lag": lag, "max_abs_err": 0,
+            "plan": scan_block_plan(rows, n, sps, lag, i.is_floating_point()),
+            **kernel_times(SCAN_BLOCK, lambda: scan_block_kernel(*args),
                            lambda: scan_block_reference(*args), 50),
             **dict(zip(("bound_ms", "bound_by"), bound_ms(
-                2 * n * i.element_size() + 64 + n_bits + n_hit,
-                4 * n_bits + (2 * 32 + 3) * n_hit, FP32_FLOPS)))}
+                rows * (2 * n * i.element_size() + 32 + n_bits + n_hit) + 32,
+                rows * (4 * n_bits + (2 * 32 + 3) * n_hit), FP32_FLOPS)))}
 
 
 def narrowband_rtf(dev, i, q) -> dict:
@@ -1827,6 +1849,7 @@ def probe_kernel_entries(dev, probes) -> list:
           lambda: K.aa_corr(dec, signs, 4, n_hit), lambda: K.aa_corr_reference(dec, signs, 4, n_hit),
           50, dec.numel() + 40 * 32 * 4 + 40 * n_hit * 5, 2 * 40 * 32 * n_hit,
           library=grouped_conv(lat8, signs, 4, n_hit))
+    entries[-1]["plan"] = K.aa_corr_plan(dec, 4, n_hit)
 
     # K9: the correlation and the stack
     s9, w4, _ = dev_aagrp_repro.make_inputs(8)
@@ -1837,6 +1860,7 @@ def probe_kernel_entries(dev, probes) -> list:
           lambda: K.aa_corr(s9, w9, 4, t9), lambda: K.aa_corr_reference(s9, w9, 4, t9), 50,
           s9.numel() * 4 + 40 * 32 * 4 + 40 * t9 * 5, 2 * 40 * 32 * t9,
           library=grouped_conv(s9, w9, 4, t9))
+    entries[-1]["plan"] = K.aa_corr_plan(s9, 4, t9)
     entry("K9", "roll", K.SHIFT_STACK, "tools/dev_aagrp_repro.py:118", "K9",
           lambda: K.shift_stack(s9, 8, 4), lambda: K.shift_stack_reference(s9, 8, 4), 50,
           s9.numel() * 4 * (1 + 8), 0)
@@ -1893,6 +1917,7 @@ def probe_kernel_entries(dev, probes) -> list:
           lambda: K.aa_corr(l11, w11, 4, n_cols), lambda: K.aa_corr_reference(l11, w11, 4, n_cols),
           20, l11.numel() * 4 + 40 * 32 * 4 + 40 * n_cols * 5, 2 * 40 * 32 * n_cols,
           library=grouped_conv(l11, w11, 4, n_cols))
+    entries[-1]["plan"] = K.aa_corr_plan(l11, 4, n_cols)
     return entries
 
 
@@ -1944,7 +1969,7 @@ def main() -> int:
     nb_i, nb_q, nb_want = narrowband_scene()
     nb_block = (nb_i[:SCAN_LEN + required_halo(NB_SPS, 1)],
                 nb_q[:SCAN_LEN + required_halo(NB_SPS, 1)])
-    nb_report, nb_scan_args = check_narrowband_kernels(dev, nb_block, wb_operands)
+    nb_report, nb_scan_cases = check_narrowband_kernels(dev, nb_block, wb_operands)
     report["scan_block"] = {"max_abs_err": 0, "ok": True, **nb_report}
     log({"phase": "kernels_vs_twins", **report})
 
@@ -1995,7 +2020,14 @@ def main() -> int:
              for mode, _ in CLI_MODES}
     clocks_after_scan = nvidia_smi(CLOCKS_QUERY)
     per_kernel = time_kernels(operands, decode_args, library)
-    per_kernel["scan_block"] = time_scan_kernel(nb_scan_args)
+    # K7 at the narrowband file block, the live block and 40 float rows
+    nb_args = nb_scan_cases["int16_sps4_lag1"]
+    live_n = NB_LIVE_SCAN_LEN + required_halo(NB_SPS, 1)
+    per_kernel["scan_block"] = time_scan_kernel(nb_args)
+    per_kernel["scan_block"]["live"] = time_scan_kernel(
+        (nb_args[0][:live_n], nb_args[1][:live_n], *nb_args[2:]))
+    per_kernel["scan_block"]["float_rows_40"] = time_scan_kernel(
+        nb_scan_cases["float_rows_40"])
     for name, live in time_live(dev).items():
         per_kernel[name]["live"] = live
     for k in (fused.FILTERBANK_BF16X2W, fused.FILTERBANK_IM2COL["bf16"], fused.DEMOD_TAIL):
@@ -2004,7 +2036,13 @@ def main() -> int:
         ptx, fused.FILTERBANK_POLYX_F32, ("stack", "warps"))
     per_kernel["decode_candidates"]["ptxas"] = ptxas_of(
         ptx, decode_kernel.DECODE_CANDIDATES, ("clamp_tail",))
+    per_kernel["scan_block"]["ptxas"] = ptxas_of(ptx, scan_kernel.SCAN_BLOCK, ("iq",))
     probe_entries = probe_kernel_entries(dev, probes)
+    # sps=0: the narrow tile (any sps); 1, 2, 4, 8: the wide tile's instances
+    aa_ptxas = ptxas_of(ptx, probe_kernels.AA_CORR, ("lattice", "grp", "sps"))
+    for e in probe_entries:
+        if e["name"].startswith(probe_kernels.AA_CORR.name):
+            e["ptxas"] = aa_ptxas
     rtf = narrowband_rtf(dev, nb_i, nb_q)
     log({"phase": "timing", "scan": scans, "clocks_after_scan": clocks_after_scan,
          "kernels": per_kernel, "probe_kernels": probe_entries, "narrowband": rtf,

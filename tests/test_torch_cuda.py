@@ -13,7 +13,12 @@ frames shorter than ky + width - 1, the demod tail (K2) bit for bit at
 sps 1-8, odd lag, ragged tiles and the live and K8 shapes, K3 at each
 column tile, the live and K8 dma_mm shapes and against float64 at 33
 slices, K4 bit for bit at (40, 16) and (1, 16), sps 1-8, in both tail
-modes — every knob-matrix row's self-test, and the
+modes, the narrowband scan at the edges of its 512-position tiles
+(n_hit = 0, n_bits one past a tile, lag 8 at sps 1 and 2, AA windows
+across a tile's end, the live block), the probes' AA correlation on its
+wide (sps 1, 2, 4, 8; n_out one below, at and above a tile's end) and
+narrow tiles, with scalar-load row strides and at the K11 shape — every
+knob-matrix row's self-test, and the
 port's device path against its CPU path (wideband sniffer with and
 without connection following, its live ring loop, the narrowband
 sniffer). They import no JAX, so they
@@ -621,23 +626,35 @@ def _adv_pdu(rng, n):
 
 
 SCAN_CASES = [
-    # rows, n, sps, lag, mask_hex, float rows, amplitude
-    (1, 131_072 + 1473, 4, 1, "ffffffff", False, 2000.0),
-    (1, 50_003, 2, 1, "ffffffff", False, 2000.0),
-    (1, 60_011, 8, 8, "ffffffff", False, 127.0),
-    (1, 20_000 + 1, 4, 1, "00000000", False, 2000.0),
-    (3, 30_007, 4, 1, "ffff0fff", False, 32000.0),
-    (40, 9_001, 4, 4, "f7fffffe", True, 1.0),
+    # rows, n, sps, lag, mask_hex, float rows, amplitude, burst positions
+    # (None: three at random)
+    (1, 131_072 + 1473, 4, 1, "ffffffff", False, 2000.0, None),
+    (1, 50_003, 2, 1, "ffffffff", False, 2000.0, None),
+    (1, 60_011, 8, 8, "ffffffff", False, 127.0, None),
+    (1, 20_000 + 1, 4, 1, "00000000", False, 2000.0, None),
+    (3, 30_007, 4, 1, "ffff0fff", False, 32000.0, None),
+    (40, 9_001, 4, 4, "f7fffffe", True, 1.0, None),
+    # the edges of the kernel's 512-position tiles: the live 8192-sample
+    # block; n_hit = 0; n_bits one past a tile (odd row lengths: byte
+    # stores); lag 8 at sps 1 and 2; AA windows that run across a tile's
+    # end into the next tile's positions
+    (1, 8192 + 1473, 4, 1, "ffffffff", False, 2000.0, (1000, 4000, 7000)),
+    (2, 1 + 31 * 4, 4, 1, "ffffffff", False, 2000.0, ()),
+    (2, 20 * 512 + 1 + 1, 4, 1, "ffffffff", False, 2000.0, (1000, 5000, 9000)),
+    (1, 30_001, 1, 8, "ffffffff", False, 2000.0, None),
+    (1, 30_003, 2, 8, "ffffffff", False, 2000.0, None),
+    (1, 20_000, 4, 1, "ffffffff", False, 2000.0,
+     (8 * 512 - 60, 16 * 512 - 90, 24 * 512 - 120, 32 * 512 - 150)),
 ]
 
 
-@pytest.mark.parametrize("rows,n,sps,lag,mask_hex,floats,amp", SCAN_CASES)
-def test_scan_kernel_matches_twin(dev, rows, n, sps, lag, mask_hex, floats, amp):
+@pytest.mark.parametrize("rows,n,sps,lag,mask_hex,floats,amp,at", SCAN_CASES)
+def test_scan_kernel_matches_twin(dev, rows, n, sps, lag, mask_hex, floats, amp, at):
     rng = np.random.default_rng(n)
     ii, qq = [], []
     for r in range(rows):
-        bursts = [(int(p), _nb_burst(_adv_pdu(rng, 12), 37, sps, amp))
-                  for p in rng.integers(0, n - 2000, 3)]
+        starts = rng.integers(0, n - 2000, 3) if at is None else at
+        bursts = [(int(p), _nb_burst(_adv_pdu(rng, 12), 37, sps, amp)) for p in starts]
         i, q = _nb_scene(r + n, n, bursts, noise=max(2.0, amp / 50))
         ii.append(i)
         qq.append(q)
@@ -658,8 +675,12 @@ def test_scan_kernel_matches_twin(dev, rows, n, sps, lag, mask_hex, floats, amp)
     assert hit.shape == (rows, n - lag - 31 * sps) and bits.dtype == torch.int8
     if mask_hex == "00000000":
         assert bool(hit.all())
-    elif not floats:
+    elif not floats and lag <= sps and (at is None or len(at) >= 3):
         assert int(hit[0].sum()) >= 3
+    if at is not None and len(at) == 4:
+        # a window from the last 31*sps positions of a tile reads the next's
+        starts = torch.nonzero(hit[0]).flatten() % 512
+        assert bool((starts + 31 * sps >= 512).any())
     cpu = scan_block_reference(*[a.cpu() for a in args], sps, lag)
     assert torch.equal(cpu[0], hit.cpu()) and torch.equal(cpu[1], bits.cpu())
 
@@ -758,27 +779,60 @@ def test_narrowband_sniffer_on_card_matches_cpu(dev, monkeypatch):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("sps", [2, 4, 8])
-@pytest.mark.parametrize("form", ["f32", "int8"])
-@pytest.mark.parametrize("grp", [1, 4, 8, 32])
-def test_aa_corr_matches_twin(dev, sps, form, grp):
+AA_CASES = [
+    # sps, lattice form, grp, n_out, lattice columns, columns per CTA (None:
+    # not checked); 40 rows each
+    *[(sps, form, grp, 5000 + 37 * sps, 5000 + 68 * sps + 11, None)
+      for sps in (2, 4, 8) for form in ("f32", "int8") for grp in (1, 4, 8, 32)],
+    # wide 2048-column tiles (40 rows x 7 or 8 tiles): n_out one below, at
+    # and one above a tile's end, 16-byte (f32) and 4-byte (int8) loads
+    (4, "f32", 8, 7 * 2048 - 1, 7 * 2048 + 128, 2048),
+    (4, "int8", 1, 7 * 2048, 7 * 2048 + 128, 2048),
+    (4, "f32", 2, 7 * 2048 + 1, 7 * 2048 + 132, 2048),
+    # sps 1, 2 and 8 on wide tiles (4096 columns at sps 8)
+    (1, "f32", 16, 6 * 2048 + 5, 6 * 2048 + 40, 2048),
+    (1, "int8", 4, 6 * 2048 + 5, 6 * 2048 + 40, 2048),
+    (2, "f32", 2, 7 * 2048 + 3, 7 * 2048 + 68, 2048),
+    (8, "int8", 32, 7 * 4096 - 3, 7 * 4096 + 248, 4096),
+    # few columns: the narrow tile (the K8 and K9 probes' 40 x 2048)
+    (4, "int8", 8, 2048, 2048 + 124, 256),
+    (4, "f32", 8, 2048, 2048 + 124 + 8, 256),
+    # sps 3 takes the narrow tile at any size
+    (3, "f32", 4, 7 * 2048, 7 * 2048 + 100, 256),
+    # row strides that are not a multiple of 16 (f32) or 4 (int8) bytes:
+    # scalar loads
+    (4, "f32", 8, 7 * 2048, 7 * 2048 + 125, 2048),
+    (4, "int8", 4, 7 * 2048, 7 * 2048 + 127, 2048),
+    # the K11 probe's shape
+    (4, "f32", 1, 131_072, 131_072 + 128, 2048),
+]
+
+
+@pytest.mark.parametrize("sps,form,grp,n_out,cols,tile", AA_CASES)
+def test_aa_corr_matches_twin(dev, sps, form, grp, n_out, cols, tile):
     """Exact against the twin on +-1/0 lattices (int8: any decision,
-    0 maps to -1), with masked signs (0 weights) and a ragged n_out."""
-    from btle_tpu_torch.tools._kernels import aa_corr, aa_corr_reference
+    0 maps to -1), with masked signs (0 weights), ragged n_out, the wide
+    (persistent) and the narrow tile, vector and scalar loads."""
+    from btle_tpu_torch.tools._kernels import AA_CORR, aa_corr, aa_corr_plan, aa_corr_reference
 
     rng = np.random.default_rng(sps * 10 + grp)
-    n_out = 5000 + 37 * sps
-    cols = n_out + 31 * sps + 11
     if form == "int8":
         s = torch.as_tensor(rng.integers(-1, 2, (40, cols)), dtype=torch.int8)
     else:
         s = torch.as_tensor(rng.choice([-1.0, 0.0, 1.0], (40, cols)), dtype=torch.float32)
     w = torch.as_tensor(rng.choice([-1.0, 0.0, 1.0], (40, 32)), dtype=torch.float32)
     s[:5, 100:100 + 32 * sps:sps] = (w[:5] if form == "f32" else w[:5].to(torch.int8))
+    at = n_out - 1 - 31 * sps          # a window whose last tap is the last column
+    s[5:8, at:at + 32 * sps:sps] = (w[5:8] if form == "f32" else w[5:8].to(torch.int8))
     want = aa_corr_reference(s, w, sps, n_out, n_mask=30)
-    got = aa_corr(s.to(dev), w.to(dev), sps, n_out, grp=grp, n_mask=30)
+    sd = s.to(dev)
+    before = AA_CORR.launches
+    got = aa_corr(sd, w.to(dev), sps, n_out, grp=grp, n_mask=30)
     torch.cuda.synchronize()
+    assert AA_CORR.launches == before + 1
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    if tile is not None:
+        assert aa_corr_plan(sd, sps, n_out, grp)["tile_columns"] == tile
 
 
 @pytest.mark.parametrize("grp,sps,k0", [(4, 4, 0), (8, 4, 64), (16, 2, 0), (8, 8, -8)])

@@ -138,6 +138,38 @@ def test_scan_twin_rows_with_per_row_aa(floats):
         np.testing.assert_array_equal(ref[1], got[1][c])
 
 
+# the lengths at which the CUDA kernel's 512-position tiles end: n_hit = 0,
+# n_hit or n_bits one past a tile, ragged tails at sps 8 / lag 8, lag 8 at
+# sps 1 and 2
+SCAN_EDGES = [(1 + 31 * 4, 4, 1), (8 + 31 * 8, 8, 8), (1 + 31 * 4 + 513, 4, 1),
+              (2 * 512 + 1 + 1, 4, 1), (8 + 31 * 8 + 3 * 512 + 3, 8, 8),
+              (8 + 31 + 2 * 512 + 7, 1, 8), (8 + 62 + 2 * 512 + 5, 2, 8)]
+
+
+@pytest.mark.parametrize("floats", [False, True])
+@pytest.mark.parametrize("n,sps,lag", SCAN_EDGES)
+def test_scan_twin_tile_edges_match_jax(n, sps, lag, floats):
+    """Two (C, N) rows of wide noise at the kernel's tile edges, each with
+    its own AA row, under a full care mask and a 4-bit one (so some
+    positions hit): the twin equals the JAX scan row by row."""
+    rng = np.random.default_rng(n + sps + lag)
+    i, q = rng.integers(-3000, 3001, (2, 2, n)).astype(np.int16)
+    if floats:
+        i = i.astype(np.float32) * np.float32(0.37)
+        q = q.astype(np.float32) * np.float32(0.37)
+    aa = np.stack([ADV_AA, rng.integers(0, 2, 32).astype(np.int8)])
+    for mask_hex in ("ffffffff", "0000000f"):
+        mask = B.hex_to_bits(mask_hex)
+        got = _port_scan(i, q, aa, mask, sps, lag)
+        assert got[0].shape == (2, n - lag - 31 * sps)
+        for c in range(2):
+            ref = _jax_scan(i[c], q[c], aa[c], mask, sps, lag)
+            np.testing.assert_array_equal(ref[0], got[0][c])
+            np.testing.assert_array_equal(ref[1], got[1][c])
+        if mask_hex == "0000000f" and n > 600:
+            assert got[0].any()
+
+
 @pytest.mark.parametrize("sps,lag", [(4, 1), (8, 8)])
 def test_pallas_scan_interpret_matches_twin(sps, lag):
     """The TPU kernel (interpret mode, as tests/test_pallas.py runs it) on
