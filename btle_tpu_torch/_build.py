@@ -78,6 +78,8 @@ _PLAN_SIGNATURES = {
     "aa_corr": "iliii",
     # rows, N, sps, lag, is_float
     "scan_block": "iliii",
+    # rows, nbp, grp
+    "shift_stack": "ili",
 }
 PLAN_KEYS = ("smem_bytes", "ctas_per_sm", "ctas", "threads", "tile_columns")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}

@@ -21,6 +21,7 @@
 //
 // btle_shift_stack, the rolled stack itself, with its wrap-around:
 //   x[r*rows + c, t] = s[c, (t + k0 + sps*(grp-1-r)) mod nbp],  t < nbp.
+// A copy: bit for bit with its twin (grp <= 64, nbp < 2^30).
 //
 // Bound on the H100: bytes. At the probes' largest size (40 rows of a
 // 131072-column block) the correlation reads 21 MB of lattice and writes
@@ -50,7 +51,12 @@
 //   latency-bound, so the tile is the shortest chain: 256 columns, one
 //   output per thread from the tile staged in column order, stored
 //   directly.
-// The stack is a plain gather, one thread per output element.
+// The stack is a copy bound by its bytes (K9's 8 x 40 x 2176: 2.8 MB
+// written, 0.35 MB read, ~0.9 us at 3.35 TB/s, about the launch floor), so
+// its cost is instructions and the launch: no 64-bit modulo per element
+// (each row group's shift is reduced mod nbp once, on the host, and an
+// element's source wraps by one conditional subtract), 16-byte loads and
+// stores, and a grid of at most one wave (see shift_stack_kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +69,8 @@ constexpr int kWideU = 16;         // outputs per thread on wide tiles
 constexpr int kNarrowThreads = 256;
 constexpr int kNarrowSpan = kNarrowThreads + (kTaps - 1) * kMaxSps;
 constexpr int kStackThreads = 256;
+constexpr int kStackU = 4;          // 16-byte groups a stack thread stores
+constexpr int kMaxStackGroups = 64;  // row groups (shifts) a stack takes
 constexpr int kMaxDevices = 64;
 constexpr int kNumGroups = 6;      // groupings 1, 2, 4, 8, 16, 32
 
@@ -314,6 +322,7 @@ struct Plan {
 struct DeviceInfo {
   int sms;
   int per_sm[2][kNumGroups][5];
+  int stack_per_sm;
 };
 DeviceInfo g_info[kMaxDevices];
 
@@ -377,17 +386,108 @@ cudaError_t launch_corr(const void* s, const void* w, void* acc, void* hit,
   return cudaGetLastError();
 }
 
+// The stack: items are (output row, segment of seg_groups 16-byte groups);
+// a thread takes up to kStackU groups of a segment, kStackThreads apart, so a
+// warp stores whole lines. The row's shift, reduced mod nbp on the host,
+// is a kernel parameter; each group's source column wraps by one
+// conditional subtract (t + shift < 2*nbp). Groups start at the row's
+// first 16-byte-aligned column a0; the head [0, a0) and the tail past the
+// last whole group (at most three columns each) are stored scalarly. A
+// group whose source is aligned and does not cross the seam is one float4
+// load, else four scalar loads. The shifts are a __grid_constant__
+// parameter, so indexing them by r reads the parameter bank, no local copy.
+struct StackShifts {
+  int v[kMaxStackGroups];   // shift of row group r, in [0, nbp)
+};
+
 __global__ void __launch_bounds__(kStackThreads) shift_stack_kernel(
-    const float* __restrict__ s, float* __restrict__ x, int rows,
-    long long nbp, int grp, int sps, long long k0) {
-  const int out_row = blockIdx.y;             // r * rows + c
-  const int r = out_row / rows, c = out_row % rows;
-  const long long t = (long long)blockIdx.x * kStackThreads + threadIdx.x;
-  if (t >= nbp) return;
-  const long long shift = k0 + (long long)sps * (grp - 1 - r);
-  long long src = (t + shift) % nbp;
-  if (src < 0) src += nbp;
-  x[(long long)out_row * nbp + t] = s[(long long)c * nbp + src];
+    const float* __restrict__ s, float* __restrict__ x, int rows, int nbp,
+    int segs, int seg_groups, int items, const __grid_constant__ StackShifts sh) {
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int row = item / segs, seg = item - row * segs;  // CTA-uniform
+    const int r = row / rows, c = row - r * rows;
+    const int shift = sh.v[r];
+    float* __restrict__ xr = x + (long long)row * nbp;
+    const float* __restrict__ sr = s + (long long)c * nbp;
+    const int a0 = min((int)((0u - (unsigned)((uintptr_t)xr >> 2)) & 3u), nbp);
+    const int groups = (nbp - a0) >> 2;
+    if (seg == 0 && threadIdx.x < 8) {    // the head and the tail
+      const int t = threadIdx.x < 4 ? threadIdx.x : a0 + 4 * groups + threadIdx.x - 4;
+      if (threadIdx.x < 4 ? t < a0 : t < nbp) {
+        int src = t + shift;
+        if (src >= nbp) src -= nbp;
+        xr[t] = sr[src];
+      }
+    }
+    const int g_lo = seg * seg_groups;
+    const int g_hi = min(groups, g_lo + seg_groups);
+    float4 v[kStackU];
+#pragma unroll
+    for (int u = 0; u < kStackU; ++u) {
+      const int g = g_lo + threadIdx.x + u * kStackThreads;
+      if (g < g_hi) {
+        int src = a0 + 4 * g + shift;
+        if (src >= nbp) src -= nbp;
+        const float* p = sr + src;
+        if (src + 3 < nbp && ((uintptr_t)p & 15) == 0) {
+          v[u] = __ldg(reinterpret_cast<const float4*>(p));
+        } else {
+          float e[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            int k = src + j;
+            if (k >= nbp) k -= nbp;
+            e[j] = __ldg(sr + k);
+          }
+          v[u] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStackU; ++u) {
+      const int g = g_lo + threadIdx.x + u * kStackThreads;
+      if (g < g_hi) *reinterpret_cast<float4*>(xr + a0 + 4 * g) = v[u];
+    }
+  }
+}
+
+struct StackPlan {
+  int segs, seg_groups, items, per_sm, grid;
+};
+
+bool stack_valid(int rows, long long nbp, int grp) {
+  return rows >= 1 && grp >= 1 && grp <= kMaxStackGroups && nbp >= 1 &&
+         nbp < (1LL << 30) && (long long)grp * rows * (nbp / 4 + 1) < (1LL << 31);
+}
+
+// Segments of at most kStackThreads * kStackU groups, split evenly over the
+// row; the grid is one wave (the CTAs the card holds at once) or the items,
+// whichever is fewer.
+cudaError_t make_stack_plan(int rows, int nbp, int grp, StackPlan* p) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  DeviceInfo local = {};
+  DeviceInfo& info = dev < kMaxDevices ? g_info[dev] : local;
+  if (info.sms == 0) {
+    err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  if (info.stack_per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info.stack_per_sm, shift_stack_kernel,
+                                                        kStackThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (info.stack_per_sm < 1) return cudaErrorInvalidConfiguration;
+  }
+  const int max_groups = nbp / 4 > 0 ? nbp / 4 : 1;
+  const int per_seg = kStackThreads * kStackU;
+  p->segs = (max_groups + per_seg - 1) / per_seg;
+  p->seg_groups = (max_groups + p->segs - 1) / p->segs;
+  p->items = grp * rows * p->segs;
+  p->per_sm = info.stack_per_sm;
+  const int cap = info.stack_per_sm * info.sms;
+  p->grid = p->items < cap ? p->items : cap;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -425,9 +525,32 @@ extern "C" int btle_aa_corr_plan(int rows, long long n_out, int sps, int grp,
 
 extern "C" int btle_shift_stack(const void* s, void* x, int rows, long long nbp,
                                 int grp, int sps, long long k0, void* stream) {
-  if (rows < 1 || grp < 1 || nbp < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((nbp + kStackThreads - 1) / kStackThreads), (unsigned)(grp * rows));
-  shift_stack_kernel<<<grid, kStackThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)s, (float*)x, rows, nbp, grp, sps, k0);
+  if (!stack_valid(rows, nbp, grp)) return (int)cudaErrorInvalidValue;
+  StackPlan p;
+  const cudaError_t err = make_stack_plan(rows, (int)nbp, grp, &p);
+  if (err != cudaSuccess) return (int)err;
+  StackShifts sh;
+  for (int r = 0; r < grp; ++r) {
+    const long long k = (k0 + (long long)sps * (grp - 1 - r)) % nbp;
+    sh.v[r] = (int)(k < 0 ? k + nbp : k);
+  }
+  shift_stack_kernel<<<p.grid, kStackThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)s, (float*)x, rows, (int)nbp, p.segs, p.seg_groups, p.items, sh);
   return (int)cudaGetLastError();
+}
+
+// The stack's launch shape for (rows, nbp, grp): info[0] dynamic shared
+// memory (none), [1] resident CTAs per SM, [2] CTAs in the grid, [3]
+// threads per CTA, [4] output columns per segment.
+extern "C" int btle_shift_stack_plan(int rows, long long nbp, int grp, int* info) {
+  if (!stack_valid(rows, nbp, grp)) return (int)cudaErrorInvalidValue;
+  StackPlan p;
+  const cudaError_t err = make_stack_plan(rows, (int)nbp, grp, &p);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = 0;
+  info[1] = p.per_sm;
+  info[2] = p.grid;
+  info[3] = kStackThreads;
+  info[4] = 4 * p.seg_groups;
+  return 0;
 }

@@ -28,6 +28,7 @@ SHIFT_STACK = CudaKernel("shift_stack", replaces="tools/dev_aagrp_repro.py:118")
 SHIFT_FMA = CudaKernel("shift_fma", replaces="tools/dev_rollscale.py:75")
 GROUPS = (1, 2, 4, 8, 16, 32)   # accumulation groupings aa_corr takes
 SHIFT_FMA_STEPS = (2, 4, 8)     # the slice strides the shift_fma kernel takes
+MAX_STACK_GROUPS = 64           # the most row groups (shifts) shift_stack takes
 
 
 def aa_corr_reference(s, w, sps: int, n_out: int, grp: int = 8,
@@ -88,16 +89,25 @@ def shift_stack_reference(s, grp: int, sps: int, k0: int = 0):
 def shift_stack(s, grp: int, sps: int, k0: int = 0):
     """(rows, nbp) float32 -> x (grp*rows, nbp) float32 with
     x[r*rows + c, t] = s[c, (t + k0 + sps*(grp-1-r)) mod nbp]: the stack
-    one strided pltpu.roll over a broadcast builds on the TPU."""
+    one strided pltpu.roll over a broadcast builds on the TPU. The kernel
+    takes 1 <= grp <= 64 and nbp < 2**30."""
     if s.device.type == "cpu":
         return shift_stack_reference(s, grp, sps, k0)
     _check_cuda("shift_stack", s)
-    if s.dtype != torch.float32 or grp < 1:
-        raise ValueError("shift_stack: takes float32 rows and grp >= 1")
     rows, nbp = s.shape
+    if s.dtype != torch.float32 or not 1 <= grp <= MAX_STACK_GROUPS or nbp >= 1 << 30:
+        raise ValueError(f"shift_stack: takes float32 rows, 1 <= grp <= "
+                         f"{MAX_STACK_GROUPS} and nbp < 2**30")
     x = torch.empty((grp * rows, nbp), dtype=torch.float32, device=s.device)
     SHIFT_STACK.launch(s, x, rows, nbp, grp, sps, k0)
     return x
+
+
+def shift_stack_plan(s, grp: int) -> dict:
+    """The launch shape ``shift_stack`` takes for these (rows, nbp) rows
+    (``_build.PLAN_KEYS``; the last is output columns per segment): CTAs
+    of 256 threads, up to four 16-byte groups a thread, at most one wave."""
+    return SHIFT_STACK.plan(s.shape[0], s.shape[1], grp)
 
 
 def fold_rows(a: torch.Tensor) -> torch.Tensor:

@@ -23,14 +23,16 @@ its TREE first on ``sys.path``, builds that tree's kernels and times them
   - K10 at R = 40, 80 and 160 (``dev_rollscale.run``, 64 tiles);
   - K8's AA stage (``aa_corr`` on 40 x 2172 int8 decisions, T = 2048,
     sps 4, grp 8);
+  - K9's roll (``shift_stack`` of 40 x 2176 float32 rows, grp 8, sps 4,
+    k0 0: the probe's stack);
   - K7 (``scan_block_kernel``, sps 4) at the narrowband block (1 x 131072
     + 1473 int16, lag 1), the live block (1 x 8192 + 1473 int16, lag 1)
     and 40 float rows of a bench block (40 x 131072 + 1476 float32, lag 4).
 
 Times are CUDA events, the median of 5 trials of 20 launches (K1-K3, K5)
-or of the probes' own trials. K4, K7 and the AA stages of K8 and K11 are
-timed by the profiler's device time over 50 launches: their wrappers'
-host work takes about as long as the kernel or longer, so events around
+or of the probes' own trials. K4, K7, the AA stages of K8 and K11 and
+K9's roll are timed by the profiler's device time over 50 launches: their
+wrappers' host work takes about as long as the kernel or longer, so events around
 back-to-back calls would time the host. Each child prints one JSON line:
 the tree, the card's name and power limit, and {kernel: ms}; the parent
 process prints them again as one JSON list on its last line. It needs a
@@ -95,7 +97,7 @@ def child(tree: str) -> dict:
     from btle_tpu_torch.rx.decode_kernel import decode_candidates
     from btle_tpu_torch.rx.pipeline import earliest_hits, required_halo
     from btle_tpu_torch.tools import dev_roll_experiment, dev_rollscale
-    from btle_tpu_torch.tools._kernels import aa_corr
+    from btle_tpu_torch.tools._kernels import aa_corr, shift_stack
     from btle_tpu_torch.wideband import fused
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
@@ -152,6 +154,8 @@ def child(tree: str) -> dict:
     signs = (2.0 * torch.randint(0, 2, (40, 32), generator=gen, device=dev) - 1.0)
     ms["K8 aa_only"] = _device_ms(lambda: aa_corr(dec, signs, 4, 2048, grp=8),
                                   "aa_corr_kernel")
+    s9 = torch.randn((40, 2176), generator=gen, device=dev)
+    ms["K9 roll"] = _device_ms(lambda: shift_stack(s9, 8, 4), "shift_stack_kernel")
     for label, rows, n, lag, dtype in (("narrowband", 1, SCAN_LEN + required_halo(4, 1), 1,
                                         torch.int16),
                                        ("live", 1, 8192 + required_halo(4, 1), 1, torch.int16),

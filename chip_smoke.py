@@ -78,9 +78,24 @@ JSON line per phase:
      dev_rollscale per R, K11 dev_roll_experiment in f32 and bf16) with
      few trials: every exact variant an exact match, every checksum pair
      MATCH, the launches of each probe's kernels counted;
+  6e. card gates and benches (btle_tpu_torch.tools, btle_tpu_torch.bench),
+     each with the launch counts zeroed just before and read just after:
+     "soak" (soak_fused: 150 packets over 0.25 s of air plus 12 followed
+     connections with channel-map updates, at 1M and 2M in "bf16x2w" and
+     "f32": every one of the 198 packets byte-exact, every connection
+     registered, stale-dropped and map-updated, no ghost CRC-OK packet);
+     "validate" (validate_fused: "f32" slot-exact against the plain scan,
+     "bf16x2w" the same CRC-OK packet set; PASS); "bench" (``python -m
+     btle_tpu_torch.bench`` in a child process, its JSON line printed as
+     it came: the fused paths, finite checksums); "live_bench"
+     (bench_live: run_live against a producer paced at 80 Msps for 5 s,
+     at 131072 and 8192 in "bf16x2w" and at 8192 in "f32": drops, Msps,
+     the producer's Msps and the verdict, which is a measurement; a CRC-OK
+     packet not in the scene fails); "latency" (bench_latency at 8192,
+     32768 and 131072);
   7. timing: wideband_scan_fused over 8 distinct device-resident noise
-     blocks (as bench.py), median Msps per CLI mode, the clocks right
-     after; per-kernel time, its
+     blocks (as bench.py), median Msps per CLI mode beside the bench
+     phase's, the clocks right after; per-kernel time, its
      twin's time, the bound, and for each filterbank one cuDNN
      convolution computing the same y as yardstick (K5 f32, K3, K4 and K10
      also with their CUDA-event trials and launch shapes, K1, K5 bf16,
@@ -95,8 +110,8 @@ JSON line per phase:
      at both block sizes; then a torch.profiler trace of 8 scan steps
      per mode: device time by kernel and the device's idle share; each
      probe kernel at its probe's shape (K8-K11 on aa_corr, shift_stack,
-     shift_fma, K2, K3 and K5; aa_corr with its launch shape and ptxas
-     report);
+     shift_fma, K2, K3 and K5; aa_corr and shift_stack with their launch
+     shapes and ptxas reports);
   8. the {"kernels": [...]} summary, K1-K11 (``k`` names the PERF.md
      rows each entry carries).
 
@@ -706,9 +721,11 @@ def ptxas_kernels(logs: dict) -> dict:
             if m:
                 name = m.group(1)
                 entries[name] = {}
-            elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
-                entries[name]["spill_stores"] = int(m.group(1))
-                entries[name]["spill_loads"] = int(m.group(2))
+            elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                                          r"stores, (\d+) bytes spill loads", ln)):
+                entries[name]["stack_frame"] = int(m.group(1))
+                entries[name]["spill_stores"] = int(m.group(2))
+                entries[name]["spill_loads"] = int(m.group(3))
             elif name and (m := re.search(r"Used (\d+) registers", ln)):
                 entries[name]["registers"] = int(m.group(1))
                 if (m := re.search(r"(\d+) bytes smem", ln)):
@@ -1321,6 +1338,114 @@ def run_tx(dev, kernels) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the card gates and benches: btle_tpu_torch.bench and btle_tpu_torch.tools
+# --------------------------------------------------------------------------
+
+# the soak at the TPU gate's size: 150 packets over 0.25 s of air on all 40
+# channels plus 12 followed connections with channel-map updates (4 packets
+# each), at 1M and 2M, in the shipped mode and the exact one
+SOAK_RUNS = (("1m", "bf16x2w"), ("1m", "f32"), ("2m", "bf16x2w"), ("2m", "f32"))
+SOAK_PACKETS, SOAK_SECONDS, SOAK_CONNECTIONS = 150, 0.25, 12
+# the live loop against a producer paced at the 80 Msps wire rate
+LIVE_RUNS = ((131072, "bf16x2w"), (8192, "bf16x2w"), (8192, "f32"))
+LIVE_SECONDS, LIVE_RATE = 5.0, 80.0
+
+
+def counted(kernels, fn):
+    """fn() with the launch counts zeroed just before and read just after:
+    (its result, {kernel: launches} of the kernels it launched)."""
+    zero_launches(kernels)
+    out = fn()
+    return out, {k: n for k, n in read_launches(kernels).items() if n}
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for name, n in got.items():
+        total[name] += n
+
+
+def run_soak(dev, kernels, launches) -> None:
+    """The "soak" phase: soak_fused.run per SOAK_RUNS; each must decode
+    every injected packet byte-exact, register, stale-drop and map-update
+    every connection, and decode no ghost."""
+    from btle_tpu_torch.tools import soak_fused
+
+    want = SOAK_PACKETS + 4 * SOAK_CONNECTIONS
+    for phy, mode in SOAK_RUNS:
+        res, got = counted(kernels, lambda phy=phy, mode=mode: soak_fused.run(
+            dev, seconds=SOAK_SECONDS, packets=SOAK_PACKETS, phy=phy, dtype=mode,
+            connections=SOAK_CONNECTIONS, map_updates=True))
+        log({"phase": "soak", "phy": phy, "mode": mode, "launches": got,
+             **{k: res[k] for k in ("seconds_air", "background_packets", "injected",
+                                    "decoded", "missing", "ghosts", "duplicates",
+                                    "connections", "truncate_rescans", "synth_s",
+                                    "sniff_s", "ok")}})
+        conn = res["connections"]
+        if not (res["ok"] and res["injected"] == res["decoded"] == want and not res["ghosts"]
+                and conn["track_start"] == conn["track_drop"] == conn["chm_update"]
+                == SOAK_CONNECTIONS):
+            raise AssertionError(f"soak ({phy}, {mode}): {res['decoded']}/{res['injected']} "
+                                 f"decoded, {len(res['ghosts'])} ghosts, connections {conn}")
+        add_launches(launches, got)
+
+
+def run_validate(dev, kernels, launches) -> None:
+    """The "validate" phase: validate_fused.run must PASS."""
+    from btle_tpu_torch.tools import validate_fused
+
+    res, got = counted(kernels, lambda: validate_fused.run(dev))
+    log({"phase": "validate", "launches": got, **res})
+    if res["result"] != "PASS":
+        raise AssertionError(f"validate: {res['checks']}")
+    add_launches(launches, got)
+
+
+def run_bench() -> dict:
+    """The "bench" phase: ``python -m btle_tpu_torch.bench`` in a child
+    process; its JSON line is printed as it came and parsed. The paths
+    must name the fused kernels and the checksums be finite."""
+    proc = subprocess.run([sys.executable, "-m", "btle_tpu_torch.bench"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    raw = proc.stdout.strip().splitlines()[-1]
+    print(raw, flush=True)
+    line = json.loads(raw)
+    if (line["path"], line["parity_path"]) != ("fused-bf16x2w", "fused-f32-polyx") or not (
+            np.isfinite(line["checksum"]) and np.isfinite(line["parity_checksum"])):
+        raise AssertionError(f"bench: unexpected line {line}")
+    return line
+
+
+def run_live_bench(dev, kernels, launches) -> None:
+    """The "live_bench" phase: bench_live.run per LIVE_RUNS against a
+    producer paced at 80 Msps. BELOW WIRE RATE is a measurement (the live
+    factor is unmet, PERF.md section 2); a CRC-OK packet not in the scene
+    is a fault."""
+    from btle_tpu_torch.tools import bench_live
+
+    for block, mode in LIVE_RUNS:
+        res, got = counted(kernels, lambda block=block, mode=mode: bench_live.run(
+            dev, rate=LIVE_RATE, seconds=LIVE_SECONDS, block=block, dtype=mode))
+        log({"phase": "live_bench", "launches": got, **res})
+        if res["ghosts"] or res["blocks"] < 1 or res["scene_packets_decoded"] < 1:
+            raise AssertionError(f"live bench ({block}, {mode}): {res['blocks']} blocks, "
+                                 f"{res['scene_packets_decoded']} scene packets, "
+                                 f"ghosts {res['ghosts'][:3]}")
+        add_launches(launches, got)
+
+
+def run_latency(dev, kernels, launches) -> None:
+    """The "latency" phase: bench_latency.run at its three block sizes."""
+    from btle_tpu_torch.tools import bench_latency
+
+    lines, got = counted(kernels, lambda: bench_latency.run(dev))
+    for line in lines:
+        log({"phase": "latency", **line})
+    add_launches(launches, got)
+
+
+# --------------------------------------------------------------------------
 # probes: the TPU development probes K8-K11 as Hopper probes
 # --------------------------------------------------------------------------
 
@@ -1864,6 +1989,7 @@ def probe_kernel_entries(dev, probes) -> list:
     entry("K9", "roll", K.SHIFT_STACK, "tools/dev_aagrp_repro.py:118", "K9",
           lambda: K.shift_stack(s9, 8, 4), lambda: K.shift_stack_reference(s9, 8, 4), 50,
           s9.numel() * 4 * (1 + 8), 0)
+    entries[-1]["plan"] = K.shift_stack_plan(s9, 8)
 
     # K10: the three stacking factors at one 131072-sample block
     n_cols = dev_rollscale.N_TILES * dev_rollscale.T
@@ -2008,6 +2134,11 @@ def main() -> int:
     for _, got in probes.values():
         for name, n in got.items():
             launches[name] += n
+    run_soak(dev, kernels, launches)
+    run_validate(dev, kernels, launches)
+    bench_line = run_bench()
+    run_live_bench(dev, kernels, launches)
+    run_latency(dev, kernels, launches)
 
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
@@ -2040,11 +2171,17 @@ def main() -> int:
     probe_entries = probe_kernel_entries(dev, probes)
     # sps=0: the narrow tile (any sps); 1, 2, 4, 8: the wide tile's instances
     aa_ptxas = ptxas_of(ptx, probe_kernels.AA_CORR, ("lattice", "grp", "sps"))
+    stack_ptxas = ptxas_of(ptx, probe_kernels.SHIFT_STACK, ())
     for e in probe_entries:
         if e["name"].startswith(probe_kernels.AA_CORR.name):
             e["ptxas"] = aa_ptxas
+        elif e["name"].startswith(probe_kernels.SHIFT_STACK.name):
+            e["ptxas"] = stack_ptxas
     rtf = narrowband_rtf(dev, nb_i, nb_q)
     log({"phase": "timing", "scan": scans, "clocks_after_scan": clocks_after_scan,
+         "bench_msps": {k: bench_line[k] for k in (
+             "value", "msps_min", "msps_max", "parity_msps", "parity_msps_min",
+             "parity_msps_max")},
          "kernels": per_kernel, "probe_kernels": probe_entries, "narrowband": rtf,
          "wideband_live": {mode: r["live"] for mode, r in wb_report.items()}})
     for mode, _ in CLI_MODES:

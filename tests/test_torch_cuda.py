@@ -835,15 +835,46 @@ def test_aa_corr_matches_twin(dev, sps, form, grp, n_out, cols, tile):
         assert aa_corr_plan(sd, sps, n_out, grp)["tile_columns"] == tile
 
 
-@pytest.mark.parametrize("grp,sps,k0", [(4, 4, 0), (8, 4, 64), (16, 2, 0), (8, 8, -8)])
-def test_shift_stack_matches_twin(dev, grp, sps, k0):
-    from btle_tpu_torch.tools._kernels import shift_stack, shift_stack_reference
+# (rows, nbp, grp, sps, k0): every grp and sps, k0 zero, negative, past
+# nbp and unaligned, nbp not a multiple of 4 (rows of unaligned bases:
+# scalar heads, tails and seam groups), one row and 40, K9's shape, and
+# rows long enough for several segments a row
+STACK_CASES = [
+    (40, 2176, 4, 4, 0), (40, 2176, 8, 4, 64), (40, 2176, 16, 2, 0), (40, 2176, 8, 8, -8),
+    (40, 2176, 1, 4, 0), (40, 2176, 8, 1, 3), (40, 2176, 8, 2, -5), (40, 2176, 16, 8, 5000),
+    (40, 2175, 8, 4, 0), (40, 2177, 4, 1, 7), (40, 2178, 16, 2, -2179), (40, 2179, 1, 8, 2181),
+    (1, 2176, 8, 4, 0), (1, 131, 16, 8, -1), (1, 3, 4, 1, 2), (1, 1, 1, 1, -7),
+    (3, 9001, 4, 4, 1), (40, 3 * 4096 + 6, 8, 4, -13), (2, 5, 16, 1, 0),
+]
 
-    rng = np.random.default_rng(grp)
-    s = torch.as_tensor(rng.normal(size=(40, 2176)), dtype=torch.float32)
-    got = shift_stack(s.to(dev), grp, sps, k0)
+
+@pytest.mark.parametrize("rows,nbp,grp,sps,k0", STACK_CASES)
+def test_shift_stack_matches_twin(dev, rows, nbp, grp, sps, k0):
+    from btle_tpu_torch.tools._kernels import (SHIFT_STACK, shift_stack, shift_stack_plan,
+                                               shift_stack_reference)
+
+    rng = np.random.default_rng(grp * 131 + nbp)
+    s = torch.as_tensor(rng.normal(size=(rows, nbp)), dtype=torch.float32)
+    sd = s.to(dev)
+    before = SHIFT_STACK.launches
+    got = shift_stack(sd, grp, sps, k0)
     torch.cuda.synchronize()
+    assert SHIFT_STACK.launches == before + 1
     assert torch.equal(got.cpu(), shift_stack_reference(s, grp, sps, k0))
+    plan = shift_stack_plan(sd, grp)
+    assert plan["threads"] == 256 and plan["tile_columns"] <= 4 * 1024
+    assert plan["ctas"] <= plan["ctas_per_sm"] * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+
+
+def test_shift_stack_refuses(dev):
+    from btle_tpu_torch.tools._kernels import shift_stack
+
+    s = torch.zeros((4, 64), device=dev)
+    with pytest.raises(ValueError):
+        shift_stack(s, 65, 4)
+    with pytest.raises(ValueError):
+        shift_stack(s.to(torch.float64), 8, 4)
 
 
 @pytest.mark.parametrize("n_cols,pad,copy_bytes", [
