@@ -60,11 +60,13 @@ _SIGNATURES = {
     "shift_stack": "ppiliilp",
     # f, kc, out, rows, ld_f, n_cols, n, step, stream
     "shift_fma": "pppilliip",
+    # la, lb, pred, signs, bits, pm_end, n_trellis, n_steps, stream
+    "viterbi_r2": "ppppppiip",
 }
 # the kernels whose source also exports btle_<name>_plan(..., int info[5]):
 # the launch shape a call would take, read back as PLAN_KEYS (the last is
-# columns per CTA, or candidates per CTA for decode_candidates and
-# positions per CTA for scan_block)
+# columns per CTA, or candidates per CTA for decode_candidates, positions
+# per CTA for scan_block and trellises per CTA for viterbi_r2)
 _PLAN_SIGNATURES = {
     # rows, n, step, n_cols, 16-byte copies
     "shift_fma": "iiili",
@@ -80,6 +82,8 @@ _PLAN_SIGNATURES = {
     "scan_block": "iliii",
     # rows, nbp, grp
     "shift_stack": "ili",
+    # n_trellis, n_steps
+    "viterbi_r2": "ii",
 }
 PLAN_KEYS = ("smem_bytes", "ctas_per_sm", "ctas", "threads", "tile_columns")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
@@ -89,7 +93,8 @@ _SOURCES = {"filterbank_bf16x2w": "filterbank_hilo_mma",
             "filterbank_im2col_bf16": "filterbank_hilo_mma",
             "filterbank_im2col_f32": "filterbank_sgemm_f32",
             "shift_stack": "aa_corr",
-            "launch_floor": "decode_candidates"}
+            "launch_floor": "decode_candidates",
+            "viterbi_r2": "viterbi"}
 
 
 def source_of(name: str) -> str:

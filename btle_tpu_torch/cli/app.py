@@ -4,10 +4,13 @@ The port's tool-layer surface, wired to IQ capture files, stdin streams
 and live UDP ingest (the ``btle_tpu`` CLI's counterpart; the other
 subcommands are not ported yet):
 
-  decode    sniff one channel from an IQ file/stdin (btle_rx equivalent)
+  decode    sniff one channel from an IQ file/stdin (btle_rx equivalent;
+            --phy coded8|coded2 decodes LE Coded captures)
   wideband  40-channel wideband sniff of an 80 Msps capture or live stream
+            (--phy coded8|coded2: LE Coded airspace, finite captures)
   tx        synthesize packet descriptors to IQ files / UDP (btle_tx
             equivalent; the fixed-point modulator runs on the device)
+  ber       BER sweep (test_btle_ber equivalent)
 
 Runs on the CUDA card unless ``--device`` names another device
 (``--device cpu`` runs the plain PyTorch path).
@@ -16,6 +19,7 @@ Runs on the CUDA card unless ``--device`` names another device
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -32,7 +36,8 @@ def _add_rx_args(p):
                    choices=["1m", "2m", "coded8", "coded2"],
                    help="LE PHY of the capture (2m = BLE 5 LE 2M: a "
                         "--sps 4 capture is then 8 Msps; coded8/coded2 "
-                        "= BLE 5 LE Coded, not ported yet)")
+                        "= BLE 5 LE Coded S=8/S=2 at 1 Msym/s — "
+                        "coded-AA sync + soft Viterbi, rx/coded.py)")
     p.add_argument("--access-addr", default=None, help="hex access address (display order)")
     p.add_argument("--crc-init", default="555555", help="hex CRC init (display order)")
     p.add_argument("--access-mask", default=None, help="hex care-mask for AA bits")
@@ -123,8 +128,7 @@ def cmd_decode(args):
     from ..stream import iq_file_source, stdin_source
 
     if args.phy in ("coded8", "coded2"):
-        raise SystemExit(f"decode: --phy {args.phy} (LE Coded) is not ported "
-                         "yet (ROADMAP Queue 1 item 13)")
+        return _cmd_decode_coded(args)
     sniffer = _build_sniffer(args)
     if args.bin == "-":
         if args.format == "csv":
@@ -149,6 +153,82 @@ def cmd_decode(args):
     return 0
 
 
+def _read_iq(path: str, fmt: str):
+    """A whole interleaved-IQ file -> (i, q) float32."""
+    if fmt not in ("i8", "i16", "f32"):
+        raise SystemExit(f"--format {fmt} is not supported for a coded PHY")
+    data = np.fromfile(path, dtype={"i8": np.int8, "i16": np.int16,
+                                    "f32": np.float32}[fmt])
+    return data[0::2].astype(np.float32), data[1::2].astype(np.float32)
+
+
+def _cmd_decode_coded(args):
+    """LE Coded capture decode: coded-AA sync + soft Viterbi over the
+    whole capture (beyond-reference; rx/coded.py)."""
+    from ..rx.coded import decode_coded
+    from ..stream.pcap import PcapWriter
+
+    if args.bin == "-":
+        raise SystemExit("decode: coded PHY needs a seekable --bin file")
+    i, q = _read_iq(args.bin, args.format)
+    aa_hex = args.access_addr or "d6be898e"
+    pkts = decode_coded(i, q, args.channel, sps=args.sps,
+                        access_address_hex=aa_hex,
+                        crc_init_hex=args.crc_init, max_candidates=8,
+                        device=args.device)
+    pcap = PcapWriter(args.pcap) if args.pcap else None
+    emitter = None
+    if args.json:
+        from ..stream import NdjsonEmitter
+
+        emitter = NdjsonEmitter()
+    for k, p in enumerate(pkts):
+        if emitter is None:
+            print(f"ch{args.channel:02d} pos{p['pos']} "
+                  f"crc{'0' if p['crc_ok'] else '1'} S={p['s']} "
+                  f"plen{p['payload_len']} aa_agree{p['aa_agree']} "
+                  + bytes(p["pdu_bytes"]).hex())
+        else:
+            _emit_coded(emitter, k + 1, args.channel, int(aa_hex, 16), p)
+        if pcap and p["crc_ok"]:
+            pcap.write_packet(bytes(p["pdu_bytes"]), args.channel,
+                              int(aa_hex, 16))
+    if pcap:
+        pcap.close()
+    ok = sum(1 for p in pkts if p["crc_ok"])
+    print(f"# {len(pkts)} coded candidates ({ok} CRC OK)", file=sys.stderr)
+    return 0
+
+
+def _emit_coded(emitter, pkt: int, channel: int, aa: int, p: dict) -> None:
+    """One coded packet as an NDJSON pkt event (the schema every decode
+    surface speaks); a header that does not parse emits nothing."""
+    from ..ll.pdu import (extract_adv_a, parse_adv_header, parse_adv_payload,
+                          parse_ll_header)
+
+    pdu = bytes(p["pdu_bytes"])
+    ts = time.time()
+    try:
+        if channel in (37, 38, 39):
+            hdr = parse_adv_header(pdu[:2])
+            try:
+                adv_a = extract_adv_a(parse_adv_payload(pdu[2:], hdr.pdu_type),
+                                      hdr.pdu_type)
+            except ValueError:
+                adv_a = None
+            emitter.pkt_adv(ts, pkt, channel, aa, p["crc_ok"],
+                            int(hdr.pdu_type), hdr.pdu_type.display_name,
+                            hdr.tx_add, hdr.rx_add, hdr.payload_len, adv_a,
+                            pdu[2:], None)
+        else:
+            hdr = parse_ll_header(pdu[:2])
+            emitter.pkt_data(ts, pkt, channel, aa, p["crc_ok"],
+                             int(hdr.llid), hdr.llid.display_name, hdr.nesn,
+                             hdr.sn, hdr.md, hdr.payload_len, pdu[2:], None)
+    except ValueError:
+        pass
+
+
 def cmd_wideband(args):
     from ..stream import NdjsonEmitter
     from ..stream.pcap import PcapWriter
@@ -156,8 +236,7 @@ def cmd_wideband(args):
     from ..wideband.stream import WidebandStreamRunner
 
     if args.phy in ("coded8", "coded2"):
-        raise SystemExit(f"wideband: --phy {args.phy} (LE Coded) is not ported "
-                         "yet (ROADMAP Queue 1 item 13)")
+        return _cmd_wideband_coded(args)
     if args.ltk:
         raise SystemExit("wideband: --ltk (passive decryption, ll/crypto.py) is "
                          "not ported yet (ROADMAP Queue 1 item 15)")
@@ -267,13 +346,40 @@ def _wideband_live(args, runner):
         ring.close()
 
 
+def _cmd_wideband_coded(args):
+    """All 40 channels of LE Coded airspace from one 80 Msps capture
+    (wideband/coded.py; beyond-reference). Finite captures only —
+    follow/live semantics are uncoded-PHY features."""
+    from ..stream.pcap import PcapWriter
+    from ..wideband.coded import scan_coded_capture
+
+    if args.live or args.follow or args.max_follow > 1:
+        raise SystemExit("wideband: coded PHY supports finite captures "
+                         "(no --live/--follow yet)")
+    if not args.bin:
+        raise SystemExit("wideband: --bin FILE required")
+    i, q = _read_iq(args.bin, args.format)
+    pkts = scan_coded_capture(i, q, device=args.device)
+    pcap = PcapWriter(args.pcap) if args.pcap else None
+    for p in pkts:
+        print(f"ch{p['channel']:02d} pos{p['pos']} "
+              f"crc{'0' if p['crc_ok'] else '1'} S={p['s']} "
+              f"plen{p['payload_len']} " + bytes(p["pdu_bytes"]).hex())
+        if pcap and p["crc_ok"]:
+            pcap.write_packet(bytes(p["pdu_bytes"]), p["channel"],
+                              0x8E89BED6)
+    if pcap:
+        pcap.close()
+    ok = sum(1 for p in pkts if p["crc_ok"])
+    print(f"# {len(pkts)} coded candidates ({ok} CRC OK) across "
+          f"{len({p['channel'] for p in pkts})} channels", file=sys.stderr)
+    return 0
+
+
 def cmd_tx(args):
     from ..tx import parse_descriptor_sequence, read_packet_file, synthesize
     from ..tx.synth import plan_to_stream
 
-    if args.phy in ("coded8", "coded2"):
-        raise SystemExit(f"tx: --phy {args.phy} (LE Coded) is not ported "
-                         "yet (ROADMAP Queue 1 item 13)")
     if args.file:
         specs, repeat = read_packet_file(args.file)
     else:
@@ -281,7 +387,29 @@ def cmd_tx(args):
     if args.repeat is not None:
         repeat = args.repeat
     sym_rate = 1
-    if args.phy == "2m":
+    if args.phy in ("coded8", "coded2"):
+        # LE Coded framing (beyond-reference): each spec's PDU rides the
+        # coded packet structure (preamble/FEC1/FEC2, spec/coded.py); the
+        # symbol stream synthesizes through the SAME raw-bits TX path at
+        # 1 Msym/s, so Space gaps and output formats work unchanged
+        from dataclasses import replace
+
+        from ..spec import bits as B
+        from ..spec import coded as K
+
+        s_coded = 8 if args.phy == "coded8" else 2
+        new_specs = []
+        for sp in specs:
+            if sp.raw_phy_bits is not None:
+                raise SystemExit("tx: RAW packets cannot be re-framed "
+                                 "for the coded PHY")
+            aa_hex = bytes(B.bits_to_bytes(sp.info_bits[8:40])).hex()
+            sym = K.assemble_coded_phy(
+                sp.info_bits[sp.pdu_start:], sp.channel, s=s_coded,
+                access_address_hex=aa_hex, crc_init_hex=sp.crc_init_hex)
+            new_specs.append(replace(sp, raw_phy_bits=sym))
+        specs = new_specs
+    elif args.phy == "2m":
         # plan_to_wideband synthesizes per-spec (2M bursts at 40
         # samples/symbol), so --wideband-out composes 2M scenes too —
         # decode them back with `wideband --phy 2m`
@@ -370,7 +498,9 @@ def _add_tx_args(p):
                    choices=["1m", "2m", "coded8", "coded2"],
                    help="frame the plan for this LE PHY (2m = BLE 5 LE "
                         "2M: 16-bit preamble; the output is then an "
-                        "8 Msps stream; coded8/coded2 not ported yet)")
+                        "8 Msps stream; coded8/coded2 = BLE 5 LE Coded "
+                        "S=8/S=2 at 1 Msym/s; decode back with `decode "
+                        "--phy 2m|coded8|coded2`)")
     p.add_argument("--dump-dir", default=None,
                    help="write reference-style per-stage trace files")
     p.add_argument("--wideband-out", default=None, metavar="FILE",
@@ -433,8 +563,8 @@ def _add_wideband_args(p):
     p.add_argument("--phy", default="1m",
                    choices=["1m", "2m", "coded8", "coded2"],
                    help="LE PHY of the airspace (2m: 2 samples/symbol per "
-                        "channel on the same grid; coded8/coded2 not "
-                        "ported yet)")
+                        "channel on the same grid; coded8/coded2 scan LE "
+                        "Coded airspace, finite captures)")
     p.add_argument("--selftest", default=None, action="store_true",
                    help="run the known-answer self-test on the device "
                         "before scanning; runs automatically when the "
@@ -444,6 +574,36 @@ def _add_wideband_args(p):
     p.add_argument("--device", default="cuda",
                    help="torch device of the scan (default cuda; cpu runs "
                         "the plain PyTorch path)")
+
+
+def cmd_ber(args):
+    from ..sim import BerHarness, reference_max_snr
+
+    h = BerHarness(device=args.device)
+    anchor = reference_max_snr(args.ppm)
+    snrs = [anchor - 4, anchor - 2.5, anchor - 1, anchor]
+    results = h.sweep(snrs, args.ppm, args.packets)
+    for snr, (ber, ok, nbits) in zip(snrs, results):
+        print(json.dumps({"ppm": args.ppm, "snr_db": round(snr, 2),
+                          "ber": ber, "pkt_ok": ok, "bits": nbits}))
+    if args.plot:
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            print("# plot skipped (no matplotlib)", file=sys.stderr)
+            return 0
+        bers = [max(r[0], 1e-7) for r in results]
+        plt.semilogy(snrs, bers, "b+-")
+        plt.title(f"BER with ppm {args.ppm}")
+        plt.xlabel("SNR(dB)")
+        plt.ylabel("BER")
+        plt.grid(True)
+        plt.savefig(args.plot, dpi=120)
+        print(f"# plot written to {args.plot}", file=sys.stderr)
+    return 0
 
 
 def build_parser():
@@ -459,6 +619,14 @@ def build_parser():
     p = sub.add_parser("tx", help="synthesize packets to an IQ file")
     _add_tx_args(p)
     p.set_defaults(fn=cmd_tx)
+    p = sub.add_parser("ber", help="BER sweep at a given ppm")
+    p.add_argument("--ppm", type=float, default=0.0)
+    p.add_argument("--packets", type=int, default=100)
+    p.add_argument("--plot", default=None, help="write semilogy BER curve PNG")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the harness (default cuda; cpu "
+                        "runs the plain PyTorch path)")
+    p.set_defaults(fn=cmd_ber)
     return ap
 
 

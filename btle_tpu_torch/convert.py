@@ -1,12 +1,12 @@
 """Carry tables and stream state from the JAX package into the port.
 
-The JAX package keeps its scan tables, filter weights and sniffer state
-as arrays; handed over as numpy arrays (``np.asarray`` of each), these
-helpers turn them into the port's tensors with the port's dtypes, so a
-deployment can move a stream from one package to the other mid-capture
-(``WidebandSniffer.load_state``; ``sniffer_state`` +
-``sniffer_from_state`` for the narrowband ``Sniffer``) or check that both
-packages hold the same tables.
+The JAX package keeps its scan tables (the LE Coded scan's too), filter
+weights and sniffer state as arrays; handed over as numpy arrays
+(``np.asarray`` of each), these helpers turn them into the port's
+tensors with the port's dtypes, so a deployment can move a stream from
+one package to the other mid-capture (``WidebandSniffer.load_state``;
+``sniffer_state`` + ``sniffer_from_state`` for the narrowband
+``Sniffer``) or check that both packages hold the same tables.
 """
 
 from __future__ import annotations
@@ -29,6 +29,19 @@ def scan_tables_from_numpy(aa_rows, aa_mask, whiten_rows, crc_inits,
             torch.tensor(np.asarray(whiten_rows, np.int8), device=dev),
             torch.tensor(np.asarray(crc_inits, np.int32), device=dev),
             torch.tensor(np.asarray(adv_flags, bool), device=dev))
+
+
+def coded_tables_from_numpy(aa_pm, ci_pm, whiten_rows, crc_init, device):
+    """The JAX package's ``wideband.coded.coded_scan_tables()`` as numpy
+    arrays — (aa_pm (256,), ci_pm (2, 40), whiten_rows (40, 360),
+    crc_init) — -> the port's LE Coded scan tables on ``device``: float32
+    +-1 patterns, int8 whitening bits and an int32 table-form CRC init, as
+    the port's ``wideband.coded.coded_scan_tables`` makes them."""
+    dev = torch.device(device)
+    return (torch.tensor(np.asarray(aa_pm, np.float32), device=dev),
+            torch.tensor(np.asarray(ci_pm, np.float32), device=dev),
+            torch.tensor(np.asarray(whiten_rows, np.int8), device=dev),
+            torch.tensor(np.asarray(crc_init, np.int32), device=dev))
 
 
 # K rows of the tensor-core B tables come in multiples of the kernel's

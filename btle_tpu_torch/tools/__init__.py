@@ -1,5 +1,6 @@
 """Hopper counterparts of the TPU tools under ``tools/``: the development
-probes and the card gates and benches.
+probes, the card gates and benches, and the BER and sensitivity
+sweeps.
 
 Each module asks its TPU tool's question of the H100 and prints the same
 kind of result lines; each has a ``run(device) -> dict`` and a ``main()``
@@ -14,6 +15,10 @@ flags), and runs nothing at import:
   validate_fused       the fused scan against the plain one
   bench_live           the live loop against a producer paced at the wire
   bench_latency        verdict latency by block size
+  ber_sweep            the full-depth BER sweep (BASELINE config 3)
+  ber_2m_wideband      LE 2M against 1M decode counts through the channelizer
+  dev_2m_cutoff        the LE 2M channel-filter cutoff sweep
+  sensitivity          every shipped fused mode at the anchor SNR
 
 The probes' Mosaic variants (strided rolls, AA_GRP groupings, VMEM
 scratch round trips, block-diagonal matmuls) collapse onto one Hopper

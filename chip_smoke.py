@@ -93,6 +93,23 @@ JSON line per phase:
      the producer's Msps and the verdict, which is a measurement; a CRC-OK
      packet not in the scene fails); "latency" (bench_latency at 8192,
      32768 and 131072);
+  6f. LE Coded, V1 and the BER simulation: "viterbi" (right after phase
+     2: V1, csrc/viterbi.cu, bit for bit with its twin in bits and pm_end
+     at 160 x 364 — the wideband scan's 40 channels x 4 slots — and 4 x
+     364, on random soft inputs and on hard +-1 inputs with ties; its
+     profiler time, twin time, bounds, launch shape and ptxas report);
+     "coded" (``python -m btle_tpu_torch tx`` then ``decode`` at coded8
+     and coded2 in child processes, byte-exact, and decode_coded on the
+     same file; the 40-channel coded scan of one 8.192 ms capture with
+     S8 and S2 packets on five channels, two of them advertising: every
+     packet CRC-OK and byte-exact at its S, no other; V1 must have
+     launched; ms a block, real-time factor and a profile); "ber" (the
+     full-depth sweep of BASELINE config 3, 3600 packets at sps 8: every
+     anchor at or below the reference's 0.1%, the waterfall shape, its
+     seconds and packets per second; a 2M anchor pair within 0.5%);
+     "sensitivity" (tests/test_wideband_sensitivity.py's 11 dB scene in
+     every shipped fused mode and the plain scan: at least 23 of 25,
+     within 1 packet of "f32");
   7. timing: wideband_scan_fused over 8 distinct device-resident noise
      blocks (as bench.py), median Msps per CLI mode beside the bench
      phase's, the clocks right after; per-kernel time, its
@@ -112,8 +129,8 @@ JSON line per phase:
      probe kernel at its probe's shape (K8-K11 on aa_corr, shift_stack,
      shift_fma, K2, K3 and K5; aa_corr and shift_stack with their launch
      shapes and ptxas reports);
-  8. the {"kernels": [...]} summary, K1-K11 (``k`` names the PERF.md
-     rows each entry carries).
+  8. the {"kernels": [...]} summary, K1-K11 and V1 (``k`` names the
+     PERF.md rows each entry carries).
 
 The last two lines are the card's name and power limit as nvidia-smi
 reports them, then {"ok": true, "device": {...}}. Without a CUDA device
@@ -703,9 +720,11 @@ def time_live(dev) -> dict:
 # the sources whose ptxas report must show no spills: the tensor-core
 # filterbank (K1, K5 f32x2 and bf16), the FP32 SGEMM filterbank (K5 f32),
 # the polyphase filterbank (K3), the demod tail (K2), the candidate decode
-# (K4), K10, the AA correlation (K8, K9, K11) and the narrowband scan (K7)
+# (K4), K10, the AA correlation (K8, K9, K11), the narrowband scan (K7)
+# and the coded Viterbi (V1)
 NO_SPILL_SOURCES = ("filterbank_hilo_mma", "filterbank_sgemm_f32", "filterbank_polyx_f32",
-                    "demod_tail", "decode_candidates", "shift_fma", "aa_corr", "scan_block")
+                    "demod_tail", "decode_candidates", "shift_fma", "aa_corr", "scan_block",
+                    "viterbi")
 # the Itanium-mangled names of the template type arguments
 MANGLED_TYPES = {"f": "float", "a": "int8", "s": "int16"}
 
@@ -1335,6 +1354,252 @@ def run_tx(dev, kernels) -> dict:
                            "ms_per_call": ms, "ms_per_packet": ms / len(phy)}
     log({"phase": "tx", **report})
     return report
+
+
+# --------------------------------------------------------------------------
+# V1, the LE Coded PHY, the BER simulation and the anchor-SNR sensitivity
+# --------------------------------------------------------------------------
+
+# the coded wideband scan at the CLI's geometry: one 80 Msps capture of
+# 8.192 ms (32768 channel samples), the 1280-tap prototype, 40 channels,
+# 4 candidate slots; S8 and S2 packets on five channels (two advertising)
+CODED_BLOCK = 655_360
+CODED_CANDIDATES = 4
+CODED_PLAN = ((37, 8, 30_000), (9, 2, 160_000), (25, 8, 240_000),
+              (2, 2, 380_000), (38, 2, 470_000))     # (channel, S, offset)
+CODED_NOISE_STD = 3.0
+CODED_TX = "37-ADV_IND-TxAdd-0-RxAdd-0-AdvA-0A0B0C0D0E0F-AdvData-0011-Space-1"
+V1_STEPS = 364                                     # rx.coded.DEC_STEPS
+BER_2M_ANCHORS = ((0.0, 11.0), (50.0, 26.0))       # (ppm, SNR dB), 300 packets
+
+
+def v1_bound(rows: int, n: int, max_sm_mhz: float) -> dict:
+    """V1's least time two ways. The contract's bound: bytes (2 float32
+    inputs and one int8 output a step, one float32 a trellis) over the
+    memory rate, or operations (4 products, 3 branch adds, 1 metric add
+    and 1 compare per (state, predecessor) per iteration) over the FP32
+    rate, whichever is larger. The chain: 182 add-compare-select
+    iterations and 182 traceback steps, each waiting on the last, at no
+    less than one dependent 4-cycle operation a step at the card's
+    maximum SM clock."""
+    nbytes = rows * (n * (4 + 4 + 1) + 4)
+    ops = rows * (n // 2) * 8 * 4 * 9
+    ms, by = bound_ms(nbytes, ops, FP32_FLOPS)
+    chain_ms = n * 4 / (max_sm_mhz * 1e3)
+    return {"bound_ms": ms, "bound_by": by, "chain_bound_ms": chain_ms,
+            "binds": "chain" if chain_ms > ms else by}
+
+
+def check_viterbi(dev, ptx: dict) -> dict:
+    """The "viterbi" phase: V1 against its twin at the wideband scan's
+    shape (160 trellises: 40 channels x 4 candidate slots) and the
+    narrowband decode's (4), on random soft inputs and on hard +-1 inputs
+    with exact zeros (ties): bits and pm_end equal. Then its profiler
+    time at 160 x 364, the twin's, the bounds, the launch shape and the
+    ptxas report."""
+    import torch
+
+    from btle_tpu_torch.phy.viterbi import (VITERBI_R2, viterbi_r2_kernel,
+                                            viterbi_decode_r2_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(364)
+    cases, operands = {}, {}
+    for rows in (40 * CODED_CANDIDATES, CODED_CANDIDATES):
+        for kind in ("soft", "hard"):
+            la = torch.randn((rows, V1_STEPS), generator=gen, device=dev)
+            lb = torch.randn((rows, V1_STEPS), generator=gen, device=dev)
+            if kind == "hard":
+                la, lb = la.sign(), lb.sign()
+                la[:, ::7] = 0.0
+            got = viterbi_r2_kernel(la, lb)
+            want = viterbi_decode_r2_reference(la, lb)
+            torch.cuda.synchronize()
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            cases[f"{rows}x{V1_STEPS} {kind}"] = {
+                "equal": same, "bits_differ": int((got[0] != want[0]).sum()),
+                "max_abs_err": float((got[1] - want[1]).abs().max())}
+            if not same:
+                raise AssertionError(f"V1 disagrees with its twin: {cases}")
+            operands[(rows, kind)] = (la, lb)
+    la, lb = operands[(40 * CODED_CANDIDATES, "soft")]
+    max_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    timing = {**kernel_times(VITERBI_R2, lambda: viterbi_r2_kernel(la, lb),
+                             lambda: viterbi_decode_r2_reference(la, lb), 50),
+              **v1_bound(la.shape[0], V1_STEPS, max_mhz), "max_sm_mhz": max_mhz,
+              "plan": VITERBI_R2.plan(la.shape[0], V1_STEPS),
+              "ptxas": ptxas_of(ptx, VITERBI_R2, ())}
+    la4, lb4 = operands[(CODED_CANDIDATES, "soft")]
+    timing["narrowband"] = {
+        "ms": kernel_device_ms(lambda: viterbi_r2_kernel(la4, lb4),
+                               "viterbi_r2_kernel", 50)[0],
+        **v1_bound(la4.shape[0], V1_STEPS, max_mhz)}
+    log({"phase": "viterbi", "cases": cases, **timing})
+    return {"max_abs_err": 0.0, **timing}
+
+
+def coded_capture(seed: int = 31):
+    """CODED_PLAN's packets (12-byte payloads, header 0x42) composed into
+    one CODED_BLOCK capture with noise: (wi, wq, {channel: (pdu, S)})."""
+    from btle_tpu_torch.golden import gfsk_modulate_float
+    from btle_tpu_torch.spec import coded as K
+    from btle_tpu_torch.spec.bits import bytes_to_bits
+    from btle_tpu_torch.wideband import compose_wideband
+
+    rng = np.random.default_rng(seed)
+    placements, injected = [], {}
+    for ch, s, off in CODED_PLAN:
+        pdu = np.concatenate([[0x42, 12], rng.integers(0, 256, 12)]).astype(np.uint8)
+        ci, cq = gfsk_modulate_float(
+            K.assemble_coded_phy(bytes_to_bits(pdu), ch, s=s), 80)
+        placements.append((ch, off, ci.astype(np.float32), cq.astype(np.float32)))
+        injected[ch] = (pdu, s)
+    wi, wq = compose_wideband(placements, CODED_BLOCK)
+    wi += rng.normal(0, CODED_NOISE_STD, CODED_BLOCK).astype(np.float32)
+    wq += rng.normal(0, CODED_NOISE_STD, CODED_BLOCK).astype(np.float32)
+    return wi, wq, injected
+
+
+def check_coded_packets(label: str, pkts, injected: dict) -> dict:
+    """Every injected (channel, PDU) CRC-OK, byte-exact and at its S; no
+    other CRC-OK packet (adjacent sync positions of one packet are one
+    packet)."""
+    ok = {(p["channel"], bytes(p["pdu_bytes"]), p["s"]) for p in pkts if p["crc_ok"]}
+    want = {(ch, bytes(pdu), s) for ch, (pdu, s) in injected.items()}
+    if ok != want:
+        raise AssertionError(f"coded {label}: missing {sorted(want - ok)}, "
+                             f"other CRC-OK {sorted(ok - want)}")
+    return {"injected": len(want), "crc_ok_candidates": sum(p["crc_ok"] for p in pkts),
+            "candidates": len(pkts)}
+
+
+def run_coded(dev, kernels, launches) -> dict:
+    """The "coded" phase. The tx CLI then the decode CLI in child
+    processes on the card at coded8 and coded2 (narrowband loopback,
+    byte-exact), and decode_coded on the same file in this process; then
+    the wideband coded scan of CODED_PLAN's capture (every injected
+    packet CRC-OK and byte-exact at its S, no other); V1 must have
+    launched. Then ms a block of the scan program (CUDA events, the
+    capture on the card) and a profile: device busy and idle share, time
+    by kernel."""
+    from collections import Counter
+
+    import torch
+
+    from btle_tpu_torch.rx.coded import decode_coded
+    from btle_tpu_torch.tx import parse_descriptor
+    from btle_tpu_torch.wideband.coded import (coded_scan_tables, scan_coded_capture,
+                                               wideband_scan_coded)
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    spec = parse_descriptor(CODED_TX)
+    want_hex = bytes(np.packbits(spec.info_bits[40:].astype(np.uint8),
+                                 bitorder="little")).hex()
+    report = {"narrowband": {}}
+    total = Counter()
+    for phy in ("coded8", "coded2"):
+        path = out_dir / f"coded.{phy}.f32"
+        lines = []
+        for args in (["tx", CODED_TX, "--phy", phy, "--out", str(path)],
+                     ["decode", "--bin", str(path), "--format", "f32", "--phy", phy,
+                      "--channel", "37"]):
+            proc = subprocess.run([sys.executable, "-m", "btle_tpu_torch", *args],
+                                  cwd=ROOT, capture_output=True, text=True, timeout=300)
+            if proc.returncode:
+                raise AssertionError(f"{args[0]} --phy {phy} exited "
+                                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            lines = proc.stdout.splitlines()
+        ok = [ln for ln in lines if " crc0 " in ln]
+        if not ok or any(not ln.endswith(want_hex) or f"S={phy[-1]}" not in ln
+                         for ln in ok):
+            raise AssertionError(f"decode --phy {phy}: {lines[:4]} (want {want_hex})")
+        data = np.fromfile(path, np.float32)
+        pkts, got = counted(kernels, lambda d=data: decode_coded(
+            d[0::2], d[1::2], 37, device=dev, max_candidates=8))
+        if not pkts or not all(p["crc_ok"] and bytes(p["pdu_bytes"]).hex() == want_hex
+                               for p in pkts):
+            raise AssertionError(f"decode_coded ({phy}): {pkts[:2]}")
+        report["narrowband"][phy] = {"cli_crc_ok_lines": len(ok),
+                                     "library_candidates": len(pkts), "launches": got}
+        add_launches(total, got)
+
+    wi, wq, injected = coded_capture()
+    pkts, got = counted(kernels, lambda: scan_coded_capture(
+        wi, wq, max_candidates=CODED_CANDIDATES, device=dev))
+    report["wideband"] = {**check_coded_packets("wideband scan", pkts, injected),
+                          "channels": sorted(injected), "launches": got}
+    add_launches(total, got)
+    if total.get("viterbi_r2", 0) <= 0:
+        raise AssertionError(f"the coded paths never launched V1: {total}")
+    add_launches(launches, total)
+
+    tables = coded_scan_tables(device=dev)
+    xi, xq = torch.as_tensor(wi, device=dev), torch.as_tensor(wq, device=dev)
+
+    def step():
+        return wideband_scan_coded(xi, xq, *tables, max_candidates=CODED_CANDIDATES,
+                                   device=dev)["crc_ok"]
+
+    ms = [cuda_time_ms(step, 10, warm=2 if t == 0 else 1) for t in range(5)]
+    air_ms = CODED_BLOCK / 80e3
+    report["scan"] = {"block_samples": CODED_BLOCK, "air_ms": air_ms,
+                      "ms_per_block": statistics.median(ms), "trials_ms": ms,
+                      "x_real_time": air_ms / statistics.median(ms),
+                      "profile": device_profile(lambda: [step() for _ in range(8)], 8)}
+    log({"phase": "coded", **report})
+    return report
+
+
+def run_ber(dev) -> dict:
+    """The "ber" phase: BASELINE config 3 on the card. The full-depth
+    sweep (btle_tpu_torch.tools.ber_sweep: 4 ppms x 4 points, 3600
+    packets, sps 8, seed 11): every anchor at or below the reference's
+    0.1%, ~93,600 bits an anchor, and each ppm's lowest point markedly
+    worse (tests/test_ber_full.py's criteria); its seconds and packets
+    per second. Then a 2M harness anchor pair (300 packets each) within
+    tests/test_sim.py's 0.5% bound."""
+    from btle_tpu_torch.sim import BerHarness
+    from btle_tpu_torch.tools import ber_sweep
+
+    out = ber_sweep.run(dev, seed=11)
+    pts = out["points"]
+    bad = [p for p in pts if p["is_anchor"] and (p["ber"] > 1e-3 or p["bits"] < 90_000)]
+    curves = {}
+    for p in pts:
+        curves.setdefault(p["ppm"], []).append(p)
+    flat = [ppm for ppm, c in curves.items()
+            if not c[0]["ber"] > 10 * max(c[-1]["ber"], 1e-6)]
+    h2 = BerHarness(phy="2m", device=dev)
+    two_m = []
+    for ppm, snr in BER_2M_ANCHORS:
+        ber, ok, nbits = h2.ber_point(snr, ppm, 300, seed=11)
+        two_m.append({"ppm": ppm, "snr_db": snr, "ber": ber, "pkts_ok": ok, "bits": nbits})
+    report = {"seconds": out["seconds"], "packets": out["packets"],
+              "packets_per_s": out["packets"] / out["seconds"],
+              "anchors_pass": out["anchors_pass"], "points": pts, "2m_anchors": two_m}
+    log({"phase": "ber", **report})
+    print(out["markdown"], flush=True)
+    if bad or flat or not out["anchors_pass"] or out["packets"] != 3600:
+        raise AssertionError(f"ber: anchors {bad}, no waterfall at ppm {flat}")
+    if any(r["ber"] > 5e-3 for r in two_m):
+        raise AssertionError(f"ber: 2M anchors {two_m}")
+    return report
+
+
+def run_sensitivity(dev, kernels, launches) -> dict:
+    """The sensitivity check: tests/test_wideband_sensitivity.py's 1M
+    scene at 11 dB through every shipped fused mode and the plain scan
+    (btle_tpu_torch.tools.sensitivity): each at least 23 of 25 and within
+    1 packet of "f32"."""
+    from btle_tpu_torch.tools import sensitivity
+
+    res, got = counted(kernels, lambda: sensitivity.run(dev))
+    bad = sensitivity.check(res)
+    log({"phase": "sensitivity", **res, "failures": bad, "launches": got})
+    if bad:
+        raise AssertionError(f"sensitivity at 11 dB: {bad}")
+    add_launches(launches, got)
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -2051,7 +2316,7 @@ def main() -> int:
     import torch
 
     from btle_tpu_torch import _build
-    from btle_tpu_torch.phy import scan_kernel
+    from btle_tpu_torch.phy import scan_kernel, viterbi
     from btle_tpu_torch.rx import decode_kernel
     from btle_tpu_torch.tools import _kernels as probe_kernels
     from btle_tpu_torch.wideband import fused
@@ -2073,7 +2338,7 @@ def main() -> int:
     path_kernels = [fused.FILTERBANK_BF16X2W, fused.FILTERBANK_POLYX_F32,
                     *fused.FILTERBANK_IM2COL.values(), fused.DEMOD_TAIL,
                     decode_kernel.DECODE_CANDIDATES, scan_kernel.SCAN_BLOCK]
-    kernels = [*path_kernels, *probe_kernels.KERNELS]
+    kernels = [*path_kernels, viterbi.VITERBI_R2, *probe_kernels.KERNELS]
     t0 = time.perf_counter()
     logs = _build.build([k.name for k in kernels], force=True)
     seconds = time.perf_counter() - t0
@@ -2098,6 +2363,7 @@ def main() -> int:
     nb_report, nb_scan_cases = check_narrowband_kernels(dev, nb_block, wb_operands)
     report["scan_block"] = {"max_abs_err": 0, "ok": True, **nb_report}
     log({"phase": "kernels_vs_twins", **report})
+    v1 = check_viterbi(dev, ptx)
 
     from btle_tpu_torch.wideband import fused_selftest
 
@@ -2139,6 +2405,9 @@ def main() -> int:
     bench_line = run_bench()
     run_live_bench(dev, kernels, launches)
     run_latency(dev, kernels, launches)
+    run_coded(dev, kernels, launches)
+    run_ber(dev)
+    run_sensitivity(dev, kernels, launches)
 
     from btle_tpu_torch.wideband.sniffer import default_scan_tables
 
@@ -2196,7 +2465,10 @@ def main() -> int:
         "k": TPU_KERNEL_OF[k.name], "name": k.name, "route": "cuda", "source": k.source,
         "replaces": k.replaces, "launches": launches[k.name],
         "max_abs_err": report[k.name]["max_abs_err"],
-        **per_kernel[k.name]} for k in path_kernels] + probe_entries})
+        **per_kernel[k.name]} for k in path_kernels] + probe_entries + [{
+        "k": ["V1"], "name": viterbi.VITERBI_R2.name, "route": "cuda",
+        "source": viterbi.VITERBI_R2.source, "replaces": viterbi.VITERBI_R2.replaces,
+        "launches": launches[viterbi.VITERBI_R2.name], **v1}]})
     print(smi, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

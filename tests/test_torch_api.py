@@ -34,7 +34,11 @@ from btle_tpu_torch import stream as tstream
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # cli/app.py subcommands the port refuses until ROADMAP Queue 1 item 15
 EXEMPT = {"btle_tpu.cli.app": {"cmd_scan", "cmd_analyze", "cmd_iq_show", "cmd_recon",
-                               "cmd_ber", "cmd_tui", "cmd_send_cmd", "cmd_mcp"}}
+                               "cmd_tui", "cmd_send_cmd", "cmd_mcp"}}
+# the LE Coded and simulation modules: each must be walked (no exemption)
+CODED_AND_SIM = ("btle_tpu.sim", "btle_tpu.sim.ber", "btle_tpu.sim.channel",
+                 "btle_tpu.sim.sweep", "btle_tpu.spec.coded", "btle_tpu.phy.viterbi",
+                 "btle_tpu.rx.coded", "btle_tpu.wideband.coded")
 
 
 def _module_name(pkg: str, rel: pathlib.Path) -> str:
@@ -56,6 +60,12 @@ PAIRS = sorted(
     for p in (ROOT / "btle_tpu_torch").rglob("*.py")
     if p.name != "__main__.py"
     and (ROOT / "btle_tpu" / p.relative_to(ROOT / "btle_tpu_torch")).exists())
+
+
+def test_walk_covers_coded_and_sim():
+    walked = {j for j, _ in PAIRS}
+    assert set(CODED_AND_SIM) <= walked, sorted(set(CODED_AND_SIM) - walked)
+    assert not set(CODED_AND_SIM) & set(EXEMPT)
 
 
 @pytest.mark.parametrize("jax_name,port_name", PAIRS)

@@ -21,7 +21,11 @@ narrow tiles, with scalar-load row strides and at the K11 shape — every
 knob-matrix row's self-test, and the
 port's device path against its CPU path (wideband sniffer with and
 without connection following, its live ring loop, the narrowband
-sniffer). They import no JAX, so they
+sniffer); then V1, the coded Viterbi, bit for bit on soft and tied hard
+inputs (one warp a CTA above 48 KB of shared memory), the narrowband and
+40-channel LE Coded receivers against the CPU with V1's launch count,
+the BER harness against the CPU with injected draws and at its anchors,
+and every shipped fused mode at the 11 dB anchor SNR. They import no JAX, so they
 run where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -946,3 +950,129 @@ def test_probes_run_on_card(dev):
     for dtype in ("f32", "bf16"):
         res = dev_roll_experiment.run(dev, dtype=dtype, n_tiles=2, iters=4, trials=1)
         assert res["failures"] == 0 and set(res["pairs"].values()) == {"MATCH"}
+
+
+# --------------------------------------------------------------------------
+# V1 (csrc/viterbi.cu), the LE Coded receivers, the BER harness and the
+# fused modes at the anchor SNR
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,n", [(160, 364), (4, 364), (3, 8), (37, 130),
+                                    (2, 2), (5, 4000)])
+@pytest.mark.parametrize("hard", [False, True])
+def test_viterbi_r2_matches_twin(dev, rows, n, hard):
+    """V1 bit for bit (bits and pm_end) with its twin: random soft inputs,
+    and hard +-1 inputs with exact zeros (ties everywhere); n = 4000 runs
+    one warp a CTA above 48 KB of shared memory."""
+    from btle_tpu_torch.phy.viterbi import (VITERBI_R2, viterbi_decode_r2,
+                                            viterbi_decode_r2_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(rows * n)
+    la = torch.randn((rows, n), generator=gen, device=dev)
+    lb = torch.randn((rows, n), generator=gen, device=dev)
+    if hard:
+        la, lb = la.sign(), lb.sign()
+        la[:, ::7] = 0.0
+    before = VITERBI_R2.launches
+    bits, pm = viterbi_decode_r2(la, lb, n)
+    torch.cuda.synchronize()
+    assert VITERBI_R2.launches == before + 1
+    want = viterbi_decode_r2_reference(la, lb)
+    assert torch.equal(bits, want[0]) and torch.equal(pm, want[1])
+    with pytest.raises(ValueError):
+        viterbi_decode_r2(la[:, :3], lb[:, :3], 3)
+
+
+def _coded_capture(seed, s, sigma):
+    from btle_tpu_torch.spec import coded as K
+
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 256, 12, dtype=np.uint8)
+    pdu = np.concatenate([[0x42, 12], payload]).astype(np.uint8)
+    sym = K.assemble_coded_phy(B.bytes_to_bits(pdu), 37, s=s)
+    ci, cq = gfsk_modulate_float(sym, 4)
+    n = len(ci) + 4000
+    wi = rng.normal(0, sigma, n).astype(np.float32)
+    wq = rng.normal(0, sigma, n).astype(np.float32)
+    wi[1000: 1000 + len(ci)] += ci
+    wq[1000: 1000 + len(cq)] += cq
+    return wi, wq, pdu
+
+
+@pytest.mark.parametrize("s,sigma", [(8, 20.0), (2, 20.0), (8, 60.0)])
+def test_decode_coded_on_card_matches_cpu(dev, s, sigma):
+    from btle_tpu_torch.phy.viterbi import VITERBI_R2
+    from btle_tpu_torch.rx.coded import decode_coded
+
+    wi, wq, pdu = _coded_capture(s, s, sigma)
+    before = VITERBI_R2.launches
+    got = decode_coded(wi, wq, 37, device=dev, max_candidates=8)
+    assert VITERBI_R2.launches == before + 1
+    want = decode_coded(wi, wq, 37, device="cpu", max_candidates=8)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert all(np.array_equal(g[k], w[k]) for k in w)
+    assert got[0]["crc_ok"] and got[0]["s"] == s
+    assert np.array_equal(got[0]["pdu_bytes"][: len(pdu)], pdu)
+
+
+def test_scan_coded_capture_on_card_matches_cpu(dev):
+    """The 40-channel coded scan: one V1 launch for all 40 x 4 trellises,
+    the CPU's packets."""
+    from btle_tpu_torch.phy.viterbi import VITERBI_R2
+    from btle_tpu_torch.spec import coded as K
+    from btle_tpu_torch.wideband.coded import scan_coded_capture
+
+    rng = np.random.default_rng(0)
+    n = 160_000
+    placements, exp = [], {}
+    for k, (ch, s) in enumerate([(37, 8), (9, 2), (25, 8)]):
+        pdu = np.concatenate([[0x42, 8], rng.integers(0, 256, 8)]).astype(np.uint8)
+        ci, cq = gfsk_modulate_float(
+            K.assemble_coded_phy(B.bytes_to_bits(pdu), ch, s=s), 80)
+        placements.append((ch, 8000 + 9000 * k, ci, cq))
+        exp[ch] = (pdu, s)
+    wi, wq = compose_wideband(placements, n)
+    wi += rng.normal(0, 3, n).astype(np.float32)
+    wq += rng.normal(0, 3, n).astype(np.float32)
+    before = VITERBI_R2.launches
+    got = scan_coded_capture(wi, wq, device=dev)
+    assert VITERBI_R2.launches == before + 1
+    want = scan_coded_capture(wi, wq, device="cpu")
+    key = [(p["channel"], p["pos"], p["s"], p["crc_ok"], bytes(p["pdu_bytes"]))
+           for p in got]
+    assert key == [(p["channel"], p["pos"], p["s"], p["crc_ok"],
+                    bytes(p["pdu_bytes"])) for p in want]
+    ok = {p["channel"]: p for p in got if p["crc_ok"]}
+    assert set(ok) == set(exp)
+    for ch, (pdu, s) in exp.items():
+        assert ok[ch]["s"] == s and np.array_equal(ok[ch]["pdu_bytes"], pdu)
+
+
+def test_ber_harness_on_card(dev):
+    """One batch on the card with injected draws equals the CPU's; the
+    anchor and clean-channel statistics of tests/test_sim.py hold."""
+    from btle_tpu_torch.sim import BerHarness, reference_max_snr
+
+    h, hc = BerHarness(device=dev), BerHarness(device="cpu")
+    rng = np.random.default_rng(5)
+    phys, pdus = hc.make_packets(hc.BATCH, rng)
+    n = phys.shape[1] * hc.sps + 2 * hc.sps
+    noise = rng.standard_normal((2, hc.BATCH, n)).astype(np.float32)
+    got = h.run_batch(phys, pdus, 14.0, 30.0, noise=noise)
+    want = hc.run_batch(phys, pdus, 14.0, 30.0, noise=noise)
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+    for ppm in (0.0, 50.0):
+        ber, ok, _ = h.ber_point(reference_max_snr(ppm), ppm, 60, seed=11)
+        assert ber <= 5e-3 and ok >= 55
+    assert h.ber_point(40.0, 0.0, 20, seed=6)[0] == 0.0
+
+
+def test_fused_modes_at_anchor_snr(dev):
+    """Every shipped fused mode on the card at 11 dB (the JAX package's
+    sensitivity scene): at least 23 of 25, within 1 packet of "f32"."""
+    from btle_tpu_torch.tools import sensitivity
+
+    res = sensitivity.run(dev)
+    assert sensitivity.check(res) == [], res

@@ -21,6 +21,7 @@ PORT_MODULES = [
     "btle_tpu_torch._device",
     "btle_tpu_torch.convert",
     "btle_tpu_torch.spec",
+    "btle_tpu_torch.spec.coded",
     "btle_tpu_torch.golden",
     "btle_tpu_torch.ll",
     "btle_tpu_torch.ll.hop",
@@ -29,11 +30,17 @@ PORT_MODULES = [
     "btle_tpu_torch.phy.modulator",
     "btle_tpu_torch.phy.scan_kernel",
     "btle_tpu_torch.phy.tables",
+    "btle_tpu_torch.phy.viterbi",
     "btle_tpu_torch.rx",
     "btle_tpu_torch.rx.decode_kernel",
     "btle_tpu_torch.rx.decoder",
+    "btle_tpu_torch.rx.coded",
     "btle_tpu_torch.rx.pipeline",
     "btle_tpu_torch.runtime",
+    "btle_tpu_torch.sim",
+    "btle_tpu_torch.sim.ber",
+    "btle_tpu_torch.sim.channel",
+    "btle_tpu_torch.sim.sweep",
     "btle_tpu_torch.stream",
     "btle_tpu_torch.stream.blocks",
     "btle_tpu_torch.stream.control",
@@ -45,11 +52,15 @@ PORT_MODULES = [
     "btle_tpu_torch.tools",
     "btle_tpu_torch.tools._kernels",
     "btle_tpu_torch.tools._measure",
+    "btle_tpu_torch.tools.ber_2m_wideband",
+    "btle_tpu_torch.tools.ber_sweep",
+    "btle_tpu_torch.tools.dev_2m_cutoff",
     "btle_tpu_torch.tools.dev_aagrp_bisect",
     "btle_tpu_torch.tools.dev_aagrp_repro",
     "btle_tpu_torch.tools.dev_roll_experiment",
     "btle_tpu_torch.tools.dev_rollscale",
     "btle_tpu_torch.tools.kernel_ab",
+    "btle_tpu_torch.tools.sensitivity",
     "btle_tpu_torch.tx",
     "btle_tpu_torch.tx.descriptor",
     "btle_tpu_torch.tx.playback",
@@ -58,6 +69,7 @@ PORT_MODULES = [
     "btle_tpu_torch.cli.app",
     "btle_tpu_torch.wideband",
     "btle_tpu_torch.wideband.channelizer",
+    "btle_tpu_torch.wideband.coded",
     "btle_tpu_torch.wideband.fused",
     "btle_tpu_torch.wideband.knobmatrix",
     "btle_tpu_torch.wideband.selftest",

@@ -486,12 +486,19 @@ def test_sniff_file_matches_jax(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_coded_phy(tmp_path):
+    """The coded decode reads a whole capture: it refuses stdin and the
+    ILA CSV format, and decodes a file (here one with no packet)."""
     from btle_tpu_torch.cli.app import main
 
     path = tmp_path / "x.i16"
     np.zeros(64, np.int16).tofile(path)
-    with pytest.raises(SystemExit, match="Queue 1 item 13"):
-        main(["decode", "--bin", str(path), "--phy", "coded8", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="seekable --bin file"):
+        main(["decode", "--bin", "-", "--phy", "coded8", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not supported for a coded PHY"):
+        main(["decode", "--bin", str(path), "--format", "csv", "--phy", "coded2",
+              "--device", "cpu"])
+    assert main(["decode", "--bin", str(path), "--phy", "coded8",
+                 "--device", "cpu"]) == 0
 
 
 def test_cli_runs_on_the_card_by_default(tmp_path):

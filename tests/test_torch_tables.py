@@ -1,9 +1,9 @@
 """The port's copies of the JAX package's numpy tables and helpers are
 equal to the originals: channelizer and fused-front-end table functions,
-spec tables, golden-model pieces (pulses, phase tables, the three
-modulators), the fixed-point modulator tables, the TX descriptor and
-playback modules, the self-test scene, and the convert.py round trip of
-scan and filter tables."""
+spec tables (the LE Coded framing too), golden-model pieces (pulses,
+phase tables, the three modulators), the fixed-point modulator tables,
+the TX descriptor and playback modules, the self-test scene, and the
+convert.py round trip of scan and filter tables."""
 
 import numpy as np
 import pytest
@@ -78,6 +78,35 @@ def test_spec_copies_equal():
         assert C.lfsr_init_to_table_init(h) == tC.lfsr_init_to_table_init(h)
     assert C.crc_init_reorder(0x123456) == tC.crc_init_reorder(0x123456)
     assert np.array_equal(B.hex_to_bits("d6be898e"), tB.hex_to_bits("d6be898e"))
+
+
+def test_spec_coded_copy_equal():
+    """spec/coded.py: constants, FEC encoder, pattern mapper and demapper,
+    Coded-PHY framing and the coded AA patterns equal the original's."""
+    from btle_tpu.spec import coded as K
+    from btle_tpu_torch.spec import coded as tK
+
+    for name in ("FEC_G0", "FEC_G1", "FEC_K", "N_TERM", "P4_MAP",
+                 "PREAMBLE_UNIT", "N_PREAMBLE_SYMBOLS", "CI_S8", "CI_S2"):
+        assert getattr(K, name) == getattr(tK, name), name
+    rng = np.random.default_rng(11)
+    msg = rng.integers(0, 2, 77).astype(np.int8)
+    for state in (0, 5):
+        assert np.array_equal(K.fec_encode(msg, state), tK.fec_encode(msg, state))
+    for s in (2, 8):
+        assert np.array_equal(K.pattern_map(msg, s), tK.pattern_map(msg, s))
+        soft = rng.normal(0, 1, 4 * 33)
+        assert np.array_equal(K.pattern_demap_soft(soft, s),
+                              tK.pattern_demap_soft(soft, s))
+        pdu = rng.integers(0, 2, 14 * 8).astype(np.int8)
+        for aa, crc in (("d6be898e", "555555"), ("60850a1b", "a77b22")):
+            assert np.array_equal(K.assemble_coded_phy(pdu, 9, s, aa, crc),
+                                  tK.assemble_coded_phy(pdu, 9, s, aa, crc))
+            assert np.array_equal(K.coded_aa_symbols(aa, s),
+                                  tK.coded_aa_symbols(aa, s))
+        assert K.fec2_symbol_count(112, s) == tK.fec2_symbol_count(112, s)
+    assert np.array_equal(K.preamble_symbols(), tK.preamble_symbols())
+    assert K.fec1_symbol_count() == tK.fec1_symbol_count()
 
 
 @pytest.mark.parametrize("channel,phy", [(37, "1m"), (9, "1m"), (38, "2m"),

@@ -275,9 +275,15 @@ def test_cli_wideband_out_equal(tmp_path, phy):
 
 
 def test_cli_refuses_coded_phy(tmp_path):
-    with pytest.raises(SystemExit, match="item 13"):
-        tapp.main(["tx", PLAN[0], "--phy", "coded8", "--out",
-                   str(tmp_path / "x.bin"), "--device", "cpu"])
+    """--phy coded8 re-frames each packet's PDU for LE Coded; a RAW packet
+    has no PDU to re-frame, and both packages refuse it alike."""
+    from btle_tpu.cli import app as japp
+
+    raw = "39-RAW-AAD6BE898E5F134B5D86F2999CC3D7DF5EDF15DE-SPACE-1"
+    for main, dev in ((tapp.main, ["--device", "cpu"]), (japp.main, [])):
+        with pytest.raises(SystemExit, match="RAW packets cannot be re-framed"):
+            main(["tx", raw, "--phy", "coded8", "--out", str(tmp_path / "x.bin"),
+                  *dev])
 
 
 def test_cli_udp_into_the_native_ring():

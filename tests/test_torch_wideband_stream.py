@@ -218,6 +218,6 @@ def test_cli_refuses_unported_options(tmp_path):
     capture = tmp_path / "air.f32"
     np.zeros(2 * BLOCK, np.float32).tofile(capture)
     for extra, item in ((["--ltk", "00" * 16], "item 15"),
-                        (["--phy", "coded8"], "item 13")):
+                        (["--phy", "coded8", "--follow"], "finite captures")):
         with pytest.raises(SystemExit, match=item):
             cli_main(["wideband", "--bin", str(capture), "--device", "cpu", *extra])
