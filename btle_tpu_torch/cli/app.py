@@ -1,19 +1,25 @@
 """btle_tpu_torch command-line interface.
 
 The port's tool-layer surface, wired to IQ capture files, stdin streams
-and live UDP ingest (the ``btle_tpu`` CLI's counterpart; the other
-subcommands are not ported yet):
+and live UDP ingest (the ``btle_tpu`` CLI's counterpart; its tui,
+send-cmd and mcp subcommands are not ported yet):
 
   decode    sniff one channel from an IQ file/stdin (btle_rx equivalent;
             --phy coded8|coded2 decodes LE Coded captures)
   wideband  40-channel wideband sniff of an 80 Msps capture or live stream
-            (--phy coded8|coded2: LE Coded airspace, finite captures)
+            (--phy coded8|coded2: LE Coded airspace, finite captures;
+            --ltk decrypts followed connections)
   tx        synthesize packet descriptors to IQ files / UDP (btle_tx
             equivalent; the fixed-point modulator runs on the device)
+  scan      decode + aggregate into a device table
+  analyze   summarize / plot a pcap
+  iq-show   waterfall spectrogram + occupancy summary of an IQ capture
+  recon     quickscan | profile | diff | entropy | gatt on a pcap
   ber       BER sweep (test_btle_ber equivalent)
 
-Runs on the CUDA card unless ``--device`` names another device
-(``--device cpu`` runs the plain PyTorch path).
+The scans run on the CUDA card unless ``--device`` names another device
+(``--device cpu`` runs the plain PyTorch path); analyze, iq-show, recon
+and the decryption are host-side, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -237,9 +243,6 @@ def cmd_wideband(args):
 
     if args.phy in ("coded8", "coded2"):
         return _cmd_wideband_coded(args)
-    if args.ltk:
-        raise SystemExit("wideband: --ltk (passive decryption, ll/crypto.py) is "
-                         "not ported yet (ROADMAP Queue 1 item 15)")
     cfg = WidebandConfig(follow_connections=args.follow or args.max_follow > 1,
                          max_follow=args.max_follow, fused=args.fused,
                          fused_dtype=args.fused_dtype, phy=args.phy)
@@ -264,7 +267,8 @@ def cmd_wideband(args):
     ndjson = NdjsonEmitter() if args.json else None
     pcap = PcapWriter(args.pcap) if args.pcap else None
     runner = WidebandStreamRunner(sn, ndjson=ndjson, pcap=pcap,
-                                  text_fh=None if args.json else sys.stdout)
+                                  text_fh=None if args.json else sys.stdout,
+                                  ltk=bytes.fromhex(args.ltk) if args.ltk else None)
     runner.start()
     if args.live:
         _wideband_live(args, runner)
@@ -543,8 +547,10 @@ def _add_wideband_args(p):
                    help="listen for send-cmd register writes and apply "
                         "them between blocks (--live)")
     p.add_argument("--ltk", default=None, metavar="HEX32",
-                   help="long-term key for passive decryption: not ported "
-                        "yet (ROADMAP Queue 1 item 15)")
+                   help="long-term key (16 bytes hex): sessions derive "
+                        "from sniffed LL_ENC_REQ/RSP exchanges and "
+                        "encrypted data PDUs decrypt in-stream "
+                        "(plain:... in text, plain_hex in NDJSON)")
     p.add_argument("--follow", action="store_true",
                    help="follow CONNECT_REQs onto the data channels")
     p.add_argument("--max-follow", type=int, default=1, metavar="N",
@@ -574,6 +580,110 @@ def _add_wideband_args(p):
     p.add_argument("--device", default="cuda",
                    help="torch device of the scan (default cuda; cpu runs "
                         "the plain PyTorch path)")
+
+
+def cmd_scan(args):
+    from ..stream import iq_file_source
+    from .aggregate import ScanAggregator
+    from .events import packet_event_to_model
+
+    want_json = args.json
+    args.json = False           # suppress per-packet NDJSON; summary only
+    args.quiet_text = True
+    sniffer = _build_sniffer(args)
+    args.json = want_json
+    events = sniffer.run(iq_file_source(args.bin, args.format))
+    agg = ScanAggregator()
+    for ev in events:
+        if ev.header is not None:
+            agg.update(packet_event_to_model(ev))
+    rows = agg.snapshot(sort="pkts")
+    if args.json:
+        from .recon import quickscan
+
+        print(quickscan(agg).model_dump_json(indent=2, exclude_none=True))
+        return 0
+    print(f"{'AdvA':18} {'Name':24} {'Vendor':20} {'Pkts':>5} {'CRC%':>5} {'RSSI':>5}")
+    for r in rows:
+        rssi = str(r.last_rssi) if r.last_rssi is not None else "-"
+        print(f"{r.adv_a:18} {r.name[:24]:24} {r.vendor[:20]:20} "
+              f"{r.pkt_count:5d} {100*r.crc_ok_ratio():5.1f} {rssi:>5}")
+    return 0
+
+
+def cmd_analyze(args):
+    from .analyze import analyze_pcap, plot_capture, save_figures
+
+    a = analyze_pcap(args.pcap)
+    for line in a.summary_lines():
+        print(line)
+    if args.plot:
+        ok = plot_capture(args.pcap, args.plot)
+        written = save_figures(args.pcap, args.plot) if ok else []
+        names = [args.plot, *written] if ok else []
+        print(f"# plots {'written: ' + ', '.join(names) if ok else 'skipped (no matplotlib)'}",
+              file=sys.stderr)
+    return 0
+
+
+def cmd_iq_show(args):
+    """Capture inspection without decoding — the reference's
+    test_rx_iq_show.py / water_fall.m workflow for every wire format the
+    CLI reads (host-side numpy, as in the JAX package)."""
+    from ..stream.sources import load_iq_capped
+    from ..utils.spectrum import occupancy, waterfall
+
+    try:
+        i, q = load_iq_capped(args.bin, args.format, args.max_samples)
+    except ValueError as e:
+        raise SystemExit(f"iq-show: {e}")
+    win = args.win or args.fft
+    hop = args.hop or win
+    power = waterfall(i, q, fft_size=args.fft, win_len=win, hop=hop)
+    print(f"# {args.bin}: {len(i)} IQ pairs @ {args.rate/1e6:g} Msps = "
+          f"{len(i)/args.rate*1e3:.3f} ms, waterfall {power.shape[0]}x"
+          f"{power.shape[1]} (fft {args.fft}, win {win}, hop {hop})")
+    occ = occupancy(power, args.rate, threshold_db=args.threshold_db)
+    if not occ:
+        print(f"# no bins above the noise floor + {args.threshold_db:g} dB")
+    for row in occ[:16]:
+        f_abs = (f", {(args.center + row['freq_offset_hz'])/1e6:.1f} MHz"
+                 if args.center is not None else "")
+        print(f"offset {row['freq_offset_hz']/1e3:+9.1f} kHz{f_abs}  "
+              f"peak {row['peak_db']:5.1f} dB  duty {row['duty']:.3f}")
+    if len(occ) > 16:
+        print(f"# ... and {len(occ) - 16} more occupied bins")
+    if args.out:
+        from .analyze import waterfall_figure
+
+        fig = waterfall_figure(i, q, args.rate, center_hz=args.center,
+                               fft_size=args.fft, win_len=win, hop=hop,
+                               power=power)
+        if fig is None:
+            print("# waterfall PNG skipped (no matplotlib)", file=sys.stderr)
+        else:
+            fig.savefig(args.out, dpi=120)
+            print(f"# waterfall written: {args.out}", file=sys.stderr)
+    return 0
+
+
+def cmd_recon(args):
+    from . import recon
+
+    if args.op == "gatt":
+        out = recon.gatt(args.pcap, ltk_hex=args.ltk)
+    elif args.op == "quickscan":
+        out = recon.quickscan(args.pcap)
+    elif args.op == "profile":
+        out = recon.profile(args.pcap, args.adv_a)
+    elif args.op == "diff":
+        out = recon.diff(args.pcap, args.pcap_b)
+    elif args.op == "entropy":
+        out = recon.payload_entropy(args.pcap, args.adv_a)
+    else:
+        raise SystemExit(f"unknown recon op {args.op}")
+    print(out.model_dump_json(indent=2, exclude_none=True))
+    return 0
 
 
 def cmd_ber(args):
@@ -619,6 +729,46 @@ def build_parser():
     p = sub.add_parser("tx", help="synthesize packets to an IQ file")
     _add_tx_args(p)
     p.set_defaults(fn=cmd_tx)
+    p = sub.add_parser("scan", help="decode + aggregate device table")
+    _add_rx_args(p)
+    p.set_defaults(fn=cmd_scan)
+    p = sub.add_parser("analyze", help="summarize a pcap capture")
+    p.add_argument("pcap")
+    p.add_argument("--plot", default=None, help="write timeline plot PNG")
+    p.set_defaults(fn=cmd_analyze)
+    p = sub.add_parser("iq-show", help="inspect an IQ capture "
+                       "(waterfall spectrogram + occupancy summary)")
+    p.add_argument("bin", help="IQ capture file")
+    p.add_argument("--format", default="i16", choices=["i8", "i16", "f32", "csv"],
+                   help="sample format (i8=HackRF, i16=firmware, "
+                        "f32=usrp/wideband, csv=Vivado ILA)")
+    p.add_argument("--rate", type=float, default=8e6,
+                   help="sample rate in Hz (default 8e6; wideband "
+                        "captures are 80e6)")
+    p.add_argument("--center", type=float, default=None,
+                   help="RF center frequency in Hz for absolute axis "
+                        "labels (wideband captures are centred at "
+                        "2.442e9, channelizer.CENTER_FREQ_HZ)")
+    p.add_argument("--fft", type=int, default=256, help="FFT size")
+    p.add_argument("--win", type=int, default=None,
+                   help="samples fed to each FFT (default --fft)")
+    p.add_argument("--hop", type=int, default=None,
+                   help="window advance per column (default --win)")
+    p.add_argument("--max-samples", type=int, default=4_000_000,
+                   help="cap on samples read from the capture")
+    p.add_argument("--threshold-db", type=float, default=12.0,
+                   help="occupancy threshold above the noise floor")
+    p.add_argument("--out", default=None, help="write waterfall PNG")
+    p.set_defaults(fn=cmd_iq_show)
+    p = sub.add_parser("recon", help="recon operations on a pcap")
+    p.add_argument("op", choices=["quickscan", "profile", "diff", "entropy", "gatt"])
+    p.add_argument("pcap")
+    p.add_argument("pcap_b", nargs="?", default=None)
+    p.add_argument("--adv-a", default=None)
+    p.add_argument("--ltk", default=None, metavar="HEX32",
+                   help="gatt: decrypt connection traffic with this LTK "
+                        "(sessions key from the capture's LL_ENC_REQ/RSP)")
+    p.set_defaults(fn=cmd_recon)
     p = sub.add_parser("ber", help="BER sweep at a given ppm")
     p.add_argument("--ppm", type=float, default=0.0)
     p.add_argument("--packets", type=int, default=100)

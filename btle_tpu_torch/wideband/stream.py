@@ -18,8 +18,10 @@ properties:
 
 Candidate-slot exhaustion is not silent: every rescan the sniffer
 performs surfaces as a ``status`` event (event="truncate") with the
-running rescan count. Passive decryption (``ltk``, ll/crypto.py in the
-JAX package) is not ported (ROADMAP Queue 1 item 15).
+running rescan count. With the LTK (``ltk``), ll/crypto.py's
+SniffDecryptor keys each connection's session from its sniffed
+LL_ENC_REQ/RSP and decrypts its data PDUs in-stream (host-side numpy
+AES-CCM): ``plain:<hex>`` on the text line, ``plain_hex`` in NDJSON.
 """
 
 from __future__ import annotations
@@ -58,20 +60,23 @@ class WidebandStreamRunner:
     pcap:   stream.pcap.PcapWriter (or None) — CRC-OK packets only
     text_fh: file handle for the human-readable per-packet lines (None =
              no text)
-    ltk:    not ported (passive decryption needs ll/crypto.py); anything
-            but None raises
+    ltk:    long-term key (16 bytes) for passive decryption, or None
     """
 
     def __init__(self, sn: WidebandSniffer, ndjson=None, pcap=None,
                  text_fh=None, ltk: bytes | None = None):
-        if ltk is not None:
-            raise NotImplementedError(
-                "ltk: passive decryption (ll/crypto.py) is not ported yet "
-                "(ROADMAP Queue 1 item 15)")
         self.sn = sn
         self.ndjson = ndjson
         self.pcap = pcap
         self.text_fh = text_fh
+        # optional passive decryption (ll.crypto.SniffDecryptor): with
+        # the LTK, sessions key themselves from the sniffed
+        # LL_ENC_REQ/RSP exchange and data PDUs decrypt in-stream
+        self.decryptor = None
+        if ltk is not None:
+            from ..ll.crypto import SniffDecryptor
+
+            self.decryptor = SniffDecryptor(ltk)
         self.pkt_count = 0
         self.mag_scale = 1.0        # RSSI calibration for integer inputs
         self.stats = StreamStats()
@@ -106,11 +111,15 @@ class WidebandStreamRunner:
     # ------------------------------------------------------------------
     def _emit_packet(self, p: WidebandPacket):
         self.pkt_count += 1
+        plain = (self.decryptor.on_packet(p)
+                 if self.decryptor is not None else None)
         if self.text_fh is not None:
-            print(f"ch{p.channel:02d} pos{p.sample_pos} "
-                  f"crc{'0' if p.crc_ok else '1'} "
-                  f"plen{p.payload_len} " + bytes(p.pdu_bytes).hex(),
-                  file=self.text_fh)
+            line = (f"ch{p.channel:02d} pos{p.sample_pos} "
+                    f"crc{'0' if p.crc_ok else '1'} "
+                    f"plen{p.payload_len} " + bytes(p.pdu_bytes).hex())
+            if plain is not None:
+                line += f" plain:{plain.hex()}"
+            print(line, file=self.text_fh)
         if self.pcap and p.crc_ok:
             # the PHDR carries the AA that keyed the channel at decode time
             # (under max_follow different data channels carry different
@@ -134,7 +143,8 @@ class WidebandStreamRunner:
             self.ndjson.pkt_data(
                 ts, self.pkt_count, p.channel, p.access_addr, p.crc_ok,
                 int(h.llid), h.llid.display_name, h.nesn, h.sn, h.md,
-                h.payload_len, payload_bytes, rssi, plain_hex=None)
+                h.payload_len, payload_bytes, rssi,
+                plain_hex=plain.hex() if plain is not None else None)
 
     def follow_events(self) -> list:
         """The hop events of the sniffer's follower so far."""

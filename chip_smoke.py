@@ -110,6 +110,27 @@ JSON line per phase:
      "sensitivity" (tests/test_wideband_sensitivity.py's 11 dB scene in
      every shipped fused mode and the plain scan: at least 23 of 25,
      within 1 packet of "f32");
+  6g. the recon chain and passive decryption, "recon" (after "ber"): the
+     card's name and power limit; AES-128 (FIPS-197 C.1), an LlSession
+     loopback both ways and a tampered MIC refused, on the port's numpy
+     AES-CCM, with microseconds a block and a 27-byte PDU; ``scan`` over
+     the narrowband scene written as i16, in this process on the card
+     (K7 and K4 counted) and in child processes on the card and with
+     --device cpu, --json and the table, all byte-equal, every
+     advertiser listed with its packet count, wall seconds and real-time
+     factor; the wideband CLI scene with its first connection's traffic
+     replaced by an LL_ENC_REQ/RSP exchange and ATT traffic encrypted
+     with LlSession.encrypt, through the library runner without and with
+     the LTK in "bf16x2w" and "f32" (the real-time factors; every
+     encrypted PDU's plain_hex its plaintext, no other plain_hex, no
+     other CRC-OK packet) and ``wideband --fused --follow --max-follow 2
+     --json --pcap --ltk`` in a child process equal to it; on its pcap
+     ``recon gatt --ltk`` (exactly the scene's ATT operations),
+     quickscan, profile, diff (against the run without the LTK) and
+     entropy, ``analyze`` and ``analyze --plot`` (its "skipped (no
+     matplotlib)" line where matplotlib is missing), each in a child
+     process and byte-equal to the in-process call; ``iq-show`` on the
+     wideband capture (its occupancy rows);
   7. timing: wideband_scan_fused over 8 distinct device-resident noise
      blocks (as bench.py), median Msps per CLI mode beside the bench
      phase's, the clocks right after; per-kernel time, its
@@ -345,7 +366,7 @@ def narrowband_scene(seed: int = 7):
     return clip(i), clip(q), want
 
 
-def wideband_cli_scene(air_s: float = WB_AIR_S, seed: int = 21):
+def wideband_cli_scene(air_s: float = WB_AIR_S, seed: int = 21, data_pdus=None):
     """air_s seconds of 80 Msps air at int8 amplitude: ADV_NONCONN_IND of
     6-30 payload bytes every 4 ms rotating over 37/38/39, the two
     CONNECT_REQs of WB_CONNS, and per connection LL data packets (LLID 1,
@@ -355,8 +376,10 @@ def wideband_cli_scene(air_s: float = WB_AIR_S, seed: int = 21):
     interval - 7 ms after the previous packet). One block of slack on
     each side of a retune keeps every packet keyed alike whether the
     re-keyed tables reach the next block (file run) or the one after
-    (run_live at pipeline 2). Returns (i, q int8, [(channel, access
-    address, pdu bytes)])."""
+    (run_live at pipeline 2). data_pdus ({access address: [pdu bytes]})
+    replaces a connection's random data packets with the given PDUs, in
+    order, until they run out (the random draws stay the same). Returns
+    (i, q int8, [(channel, access address, pdu bytes)])."""
     from btle_tpu_torch.wideband import compose_wideband
 
     rng = np.random.default_rng(seed)
@@ -383,8 +406,12 @@ def wideband_cli_scene(air_s: float = WB_AIR_S, seed: int = 21):
             if t > end_us:
                 break
             payload = rng.integers(0, 256, int(rng.integers(2, 28)), dtype=np.uint8)
-            plan.append((t, chan, aa, crc,
-                         np.concatenate([[0x01, len(payload)], payload])))
+            pdu = np.concatenate([[0x01, len(payload)], payload])
+            if data_pdus is not None and aa in data_pdus:
+                if not data_pdus[aa]:
+                    break
+                pdu = np.frombuffer(data_pdus[aa].pop(0), np.uint8)
+            plan.append((t, chan, aa, crc, pdu))
             tick = due // WB_BLOCK_US + 1
             chan = (chan + hop) % 37
             owned[aa].append((tick * WB_BLOCK_US, chan))
@@ -987,9 +1014,10 @@ def run_knob_matrix(dev, kernels) -> dict:
     return launches
 
 
-def wideband_runner(dev, mode: str, ndjson_buf, pcap_buf):
+def wideband_runner(dev, mode: str, ndjson_buf, pcap_buf, ltk: bytes | None = None):
     """The CLI's WidebandStreamRunner for ``wideband --fused --fused-dtype
-    MODE --follow --max-follow 2 --json --pcap``, writing to memory."""
+    MODE --follow --max-follow 2 --json --pcap [--ltk]``, writing to
+    memory."""
     from btle_tpu_torch.stream import NdjsonEmitter, PcapWriter
     from btle_tpu_torch.wideband import WidebandConfig, WidebandSniffer
     from btle_tpu_torch.wideband.stream import WidebandStreamRunner
@@ -998,7 +1026,7 @@ def wideband_runner(dev, mode: str, ndjson_buf, pcap_buf):
                                         fused=True, fused_dtype=mode,
                                         scan_len_ch=WB_SCAN_LEN), device=dev)
     return WidebandStreamRunner(sn, ndjson=NdjsonEmitter(ndjson_buf),
-                                pcap=PcapWriter(pcap_buf))
+                                pcap=PcapWriter(pcap_buf), ltk=ltk)
 
 
 def packet_keys(pkts) -> list:
@@ -1583,6 +1611,380 @@ def run_ber(dev) -> dict:
         raise AssertionError(f"ber: anchors {bad}, no waterfall at ppm {flat}")
     if any(r["ber"] > 5e-3 for r in two_m):
         raise AssertionError(f"ber: 2M anchors {two_m}")
+    return report
+
+
+# --------------------------------------------------------------------------
+# the recon chain and passive decryption: scan, wideband --ltk, recon,
+# analyze and iq-show
+# --------------------------------------------------------------------------
+
+# tests/test_llcrypto.py's key and LL_ENC_REQ / LL_ENC_RSP fields (on-air
+# byte order)
+RECON_LTK = bytes.fromhex("4C68384139F574D836BCF34E9DFB01BF")
+RECON_SKD_M, RECON_SKD_S = bytes.fromhex("13024212ACDEAF99"), bytes.fromhex("7907E2021B24D379")
+RECON_IV_M, RECON_IV_S = bytes.fromhex("BADCAB24"), bytes.fromhex("DEAFBABE")
+RECON_MODES = ("bf16x2w", "f32")
+# the CONNECT_REQs' AdvA (connect_req_pdu), in display order
+RECON_ADV_A = "90:d7:eb:b1:92:99"
+
+
+def l2cap_att(att: bytes) -> bytes:
+    """One ATT PDU as an L2CAP frame on the ATT channel (CID 4)."""
+    return len(att).to_bytes(2, "little") + (4).to_bytes(2, "little") + att
+
+
+def encrypted_connection_pdus() -> tuple[list, dict]:
+    """The followed connection's data PDUs, in air order: LL_ENC_REQ and
+    LL_ENC_RSP in the clear, then ATT traffic encrypted under the session
+    they key (the port's LlSession.encrypt, both directions): an MTU
+    exchange, a write request and response, a notification, a read
+    request and response, each ATT PDU whole in one LL PDU (``recon
+    gatt``, in both packages, reassembles the capture's data PDUs as one
+    stream, so the other connection's fragments would land inside a
+    fragmented one). Returns (PDU bytes, {PDU: (LLID, plaintext)} of the
+    encrypted ones)."""
+    from btle_tpu_torch.ll.crypto import LlSession
+
+    tx = LlSession.from_enc_exchange(RECON_LTK, RECON_SKD_M, RECON_SKD_S,
+                                     RECON_IV_M, RECON_IV_S)
+    plan = [(2, 1, l2cap_att(bytes([0x02, 0xF7, 0x00]))),
+            (2, 0, l2cap_att(bytes([0x03, 0xF7, 0x00]))),
+            (2, 1, l2cap_att(bytes([0x12, 0x33, 0x00, 0x07, 0x08]))),
+            (2, 0, l2cap_att(bytes([0x13]))),
+            (2, 0, l2cap_att(bytes([0x1B, 0x2A, 0x00]) + b"heart-rate=72 bpm")),
+            (2, 1, l2cap_att(bytes([0x0A, 0x03, 0x00]))),
+            (2, 0, l2cap_att(bytes([0x0B]) + b"btle-tpu"))]
+    pdus = [bytes([0x03, 23, 0x03]) + bytes(range(8)) + b"\x11\x22" + RECON_SKD_M + RECON_IV_M,
+            bytes([0x03, 13, 0x04]) + RECON_SKD_S + RECON_IV_S]
+    plain = {}
+    for llid, direction, body in plan:
+        ct = tx.encrypt(llid, body, direction)
+        pdus.append(bytes([llid, len(ct)]) + ct)
+        plain[pdus[-1]] = (llid, body)
+    return pdus, plain
+
+
+def cli_child(args, timeout: int = 300) -> tuple[str, str, float]:
+    """``python -m btle_tpu_torch ARGS`` in a child process: (stdout,
+    stderr, wall seconds); a non-zero exit raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "btle_tpu_torch", *map(str, args)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(map(str, args[:2]))} exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout, proc.stderr, seconds
+
+
+def cli_in_process(args) -> str:
+    """The port's CLI main() in this process: its standard output."""
+    import contextlib
+
+    from btle_tpu_torch.cli.app import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = main([str(a) for a in args])
+    if rc:
+        raise AssertionError(f"{args[0]} (in process) returned {rc}")
+    return out.getvalue()
+
+
+def check_aes() -> dict:
+    """AES-128 and AES-CCM of the port (numpy, host-side; the port uses
+    no cryptography package) against the standard's constants: FIPS-197
+    C.1, an LlSession loopback in both directions, a tampered MIC
+    refused; then microseconds a 16-byte block, a 27-byte PDU encrypted
+    and decrypted, and a plaintext PDU refused by a keyed session (every
+    counter of the window in both directions)."""
+    from btle_tpu_torch.ll import crypto
+
+    key = bytes(range(16))
+    block = bytes.fromhex("00112233445566778899aabbccddeeff")
+    if crypto.aes_e(key, block).hex() != "69c4e0d86a7b0430d8cdb78070b4c55a":
+        raise AssertionError("AES-128 misses FIPS-197 C.1")
+    exchange = (RECON_LTK, RECON_SKD_M, RECON_SKD_S, RECON_IV_M, RECON_IV_S)
+    tx, rx = (crypto.LlSession.from_enc_exchange(*exchange) for _ in range(2))
+    for direction in (0, 1):
+        for k in range(4):
+            payload = bytes([direction, k]) * 13 + b"!"
+            if rx.decrypt(0x02, tx.encrypt(0x02, payload, direction), direction) != payload:
+                raise AssertionError(f"LlSession loopback failed (direction {direction})")
+    bad = bytearray(tx.encrypt(0x02, b"tamper-me", 0))
+    bad[-1] ^= 1
+    if rx.decrypt(0x02, bytes(bad), 0) is not None:
+        raise AssertionError("a tampered MIC was accepted")
+    reps = 300
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        crypto.aes_e(key, block)
+    us_block = 1e6 * (time.perf_counter() - t0) / reps
+    payload = bytes(range(27))
+    sess, recv = crypto.LlSession(sk=key, iv=bytes(8)), crypto.LlSession(sk=key, iv=bytes(8))
+    t0 = time.perf_counter()
+    cts = [sess.encrypt(0x02, payload, 0) for _ in range(reps)]
+    us_enc = 1e6 * (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    if any(recv.decrypt(0x02, ct, 0) != payload for ct in cts):
+        raise AssertionError("a 27-byte PDU did not decrypt")
+    us_dec = 1e6 * (time.perf_counter() - t0) / reps
+    dec = crypto.SniffDecryptor(key)
+    dec.sessions[1] = crypto.LlSession(sk=key, iv=bytes(8))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        if dec.try_decrypt(1, 0x02, payload) is not None:
+            raise AssertionError("a plaintext PDU authenticated")
+    us_reject = 1e6 * (time.perf_counter() - t0) / 20
+    return {"fips197_c1": True, "loopback": True, "tamper_refused": True,
+            "us_per_block": us_block, "us_per_pdu27_encrypt": us_enc,
+            "us_per_pdu27_decrypt": us_dec, "us_per_plaintext_pdu_refused": us_reject}
+
+
+def scan_advertisers(nb_want) -> dict:
+    """{AdvA: packets} of the narrowband scene's advertising packets."""
+    from collections import Counter
+
+    counts = Counter()
+    for _, aa, pdu in nb_want:
+        kind = pdu[0] & 0x0F
+        if aa != ADV_AA:
+            continue
+        raw = pdu[2:8] if kind in (0, 1, 2, 3, 4, 6) else pdu[8:14] if kind == 5 else b""
+        if len(raw) == 6:
+            counts[":".join(f"{b:02x}" for b in raw[::-1])] += 1
+    return dict(counts)
+
+
+def run_recon_scan(kernels, nb_i, nb_q, nb_want, out_dir) -> tuple[dict, dict]:
+    """``scan`` over the narrowband scene written as i16: in this process
+    on the card (K7 and K4 counted), then in child processes on the card
+    and with --device cpu (the twins), --json and the table: all four
+    byte-equal pairwise, the quickscan listing every advertiser of the
+    scene with its packet count."""
+    path = out_dir / "recon_nb.i16"
+    np.stack([nb_i, nb_q], axis=1).reshape(-1).tofile(path)
+    air_s = NB_SAMPLES / (NB_SPS * 1e6)
+    argv = ["scan", "--bin", path, "--format", "i16"]
+    try:
+        walls, outs = [], []
+        for extra in (["--json"], [], ["--json"]):
+            t0 = time.perf_counter()
+            out, got = counted(kernels, lambda e=extra: cli_in_process([*argv, *e]))
+            walls.append(time.perf_counter() - t0)
+            outs.append((out, got))
+        (text_json, got), (table, got_table) = outs[:2]
+        if outs[2][0] != text_json:
+            raise AssertionError("scan --json differs between two runs")
+        for name in ("scan_block", "decode_candidates"):
+            if got.get(name, 0) <= 0:
+                raise AssertionError(f"scan never launched {name}: {got}")
+        # the first run pays the process's first launches of K7 and K4
+        report = {"air_s": air_s, "in_process_s": walls, "x_real_time": air_s / walls[-1],
+                  "launches": got}
+        for label, extra, want in (("json", ["--json"], text_json), ("table", [], table)):
+            card, _, card_s = cli_child([*argv, *extra])
+            cpu, _, cpu_s = cli_child([*argv, *extra, "--device", "cpu"])
+            if not (card == cpu == want):
+                raise AssertionError(f"scan ({label}): the card's output differs from "
+                                     f"--device cpu or the in-process run")
+            report[label] = {"card_s": card_s, "cpu_s": cpu_s, "bytes": len(card),
+                             "equal": True}
+    finally:
+        path.unlink(missing_ok=True)
+    summary = json.loads(text_json)
+    counts = scan_advertisers(nb_want)
+    listed = {d["adv_a"]: d["n_pkts"] for d in summary["devices_top"]}
+    if summary["n_devices"] != len(counts) or any(counts.get(a) != n for a, n in listed.items()):
+        raise AssertionError(f"scan: {summary['n_devices']} devices {listed}, "
+                             f"the scene has {len(counts)}")
+    if len(table.splitlines()) != 1 + len(counts):
+        raise AssertionError("scan: the table does not list every advertiser")
+    report.update({"n_devices": summary["n_devices"], "n_packets": summary["n_packets"],
+                   "devices_listed": len(listed)})
+    return report, {k: got.get(k, 0) + got_table.get(k, 0) for k in {*got, *got_table}}
+
+
+def ndjson_pdu(e: dict) -> bytes:
+    """The PDU bytes of an NDJSON data event (header from its fields)."""
+    h0 = e["ll_pdu_type"] | e["nesn"] << 2 | e["sn"] << 3 | e["md"] << 4
+    return bytes([h0, e["plen"]]) + bytes.fromhex(e["payload_hex"])
+
+
+def check_plaintexts(label: str, ndjson_text: str, plain: dict) -> int:
+    """Every encrypted PDU of the scene carries its plaintext as
+    plain_hex, once; no other event carries one."""
+    seen = 0
+    for e in ndjson_without_ts(ndjson_text):
+        if e["t"] != "pkt" or e.get("kind") != "data" or not e["crc_ok"]:
+            if "plain_hex" in e:
+                raise AssertionError(f"{label}: plain_hex on {e}")
+            continue
+        pdu = ndjson_pdu(e)
+        want = plain.get(pdu)
+        if want is None:
+            if "plain_hex" in e:
+                raise AssertionError(f"{label}: plain_hex on a PDU sent in the clear")
+        elif e.get("plain_hex") != want[1].hex():
+            raise AssertionError(f"{label}: {e.get('plain_hex')} for {want[1].hex()}")
+        else:
+            seen += 1
+    if seen != len(plain):
+        raise AssertionError(f"{label}: {seen} of {len(plain)} PDUs decrypted")
+    return seen
+
+
+def run_recon_wideband(dev, kernels, out_dir) -> tuple[dict, dict, dict]:
+    """``wideband --fused --ltk`` on the card over the 0.2 s CLI scene whose
+    first connection carries an LL_ENC_REQ/RSP exchange and encrypted ATT
+    traffic: per mode the library runner without and with the LTK (the
+    real-time factors; the difference is the host's decryption), then the
+    CLI with --follow --max-follow 2 --json --pcap --ltk in a child
+    process, equal to the library run. Returns (report, launches, files)."""
+    import torch
+
+    pdus, plain = encrypted_connection_pdus()
+    left = list(pdus)
+    wi, wq, want = wideband_cli_scene(data_pdus={WB_CONNS[0][0]: left})
+    placed = pdus[:len(pdus) - len(left)]
+    plain = {p: plain[p] for p in placed if p in plain}
+    if len(plain) < 4:
+        raise AssertionError(f"the scene holds only {len(plain)} encrypted PDUs")
+    air_s = len(wi) / 80e6
+    files = {"f32": out_dir / "recon_wideband.f32", "i8": out_dir / "recon_wideband.i8"}
+    for fmt, path in files.items():
+        inter = np.empty(2 * len(wi), np.int8 if fmt == "i8" else np.float32)
+        inter[0::2], inter[1::2] = wi, wq
+        inter.tofile(path)
+    fi, fq = wi.astype(np.float32), wq.astype(np.float32)
+    launches = {k.name: 0 for k in kernels}
+    report = {"air_s": air_s, "data_pdus_placed": len(placed), "encrypted": len(plain)}
+
+    def library(mode, ltk):
+        buf, pc = io.StringIO(), io.BytesIO()
+        runner = wideband_runner(dev, mode, buf, pc, ltk=ltk)
+        runner.start()
+        pkts = runner.run_capture(fi, fq)
+        runner.stop()
+        torch.cuda.synchronize()
+        return runner, pkts, buf.getvalue(), pc.getvalue()
+
+    for mode in RECON_MODES:
+        trials = {"plain": [], "ltk": []}
+        got_ltk = {}
+        # in turns, so that drift and the first run's warm-up fall on both
+        for label in ("plain", "ltk", "ltk", "plain", "plain", "ltk"):
+            ltk = RECON_LTK if label == "ltk" else None
+            (runner, pkts, ndjson, pcap), got = counted(kernels, lambda m=mode, k=ltk: library(m, k))
+            check_wideband_packets(f"wideband --ltk scene ({mode}, {label})", pkts, want)
+            add_launches(launches, got)
+            trials[label].append(runner.stats.wall_s)
+            if ltk is None:
+                (out_dir / f"recon-{mode}-plain.pcap").write_bytes(pcap)
+                continue
+            decrypted = check_plaintexts(f"library ({mode})", ndjson, plain)
+            if runner.decryptor.decrypted != len(plain):
+                raise AssertionError(f"library ({mode}): {runner.decryptor.decrypted} decrypted")
+            got_ltk = got
+        line = {label: {"wall_s": statistics.median(t), "trials_s": t,
+                        "x_real_time": air_s / statistics.median(t)}
+                for label, t in trials.items()}
+        line["ltk"].update({"decrypted": decrypted, "blocks": runner.stats.blocks,
+                            "launches": got_ltk})
+        line["decrypt_ms_per_block"] = 1e3 * (line["ltk"]["wall_s"] - line["plain"]["wall_s"]) \
+            / runner.stats.blocks
+        pcap_path = out_dir / f"recon-{mode}.pcap"
+        stdout, stderr, cli_s = cli_child([
+            "wideband", "--bin", files["f32"], "--format", "f32", "--fused",
+            "--fused-dtype", mode, "--follow", "--max-follow", "2", "--json",
+            "--pcap", pcap_path, "--ltk", RECON_LTK.hex()])
+        if ndjson_without_ts(stdout) != ndjson_without_ts(ndjson):
+            raise AssertionError(f"wideband --ltk CLI ({mode}) differs from the library run")
+        if pcap_records(pcap_path.read_bytes()) != pcap_records(pcap):
+            raise AssertionError(f"wideband --ltk CLI ({mode}): the pcap differs")
+        line["cli"] = {"wall_s": cli_s, "x_real_time_with_start": air_s / cli_s,
+                       "summary": stderr.strip().splitlines()[-2:]}
+        report[mode] = line
+    return report, launches, {"plain": plain, "placed": placed, **files}
+
+
+def run_recon(dev, kernels, launches, nb_i, nb_q, nb_want) -> dict:
+    """The "recon" phase: the AES known answers, ``scan`` on the card,
+    ``wideband --fused --ltk`` on the card, then ``recon gatt --ltk``,
+    quickscan, profile, diff and entropy and ``analyze`` on its pcap, and
+    ``iq-show`` on the wideband capture, each in a child process and equal
+    to the port's in-process call of the same function."""
+    import importlib.util
+
+    from btle_tpu_torch.cli import analyze, recon
+    from btle_tpu_torch.ll.l2cap import att_stream
+
+    log({"phase": "recon_device", "nvidia_smi": nvidia_smi()})
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report = {"aes": check_aes()}
+    report["scan"], got = run_recon_scan(kernels, nb_i, nb_q, nb_want, out_dir)
+    add_launches(launches, got)
+    wb, got, files = run_recon_wideband(dev, kernels, out_dir)
+    add_launches(launches, got)
+    report["wideband_ltk"] = wb
+    try:
+        pcap = out_dir / "recon-bf16x2w.pcap"
+        plain_pcap = out_dir / "recon-bf16x2w-plain.pcap"
+        ltk_hex = RECON_LTK.hex()
+        ops = {"gatt": (["recon", "gatt", pcap, "--ltk", ltk_hex],
+                        lambda: recon.gatt(str(pcap), ltk_hex=ltk_hex)),
+               "quickscan": (["recon", "quickscan", pcap], lambda: recon.quickscan(str(pcap))),
+               "profile": (["recon", "profile", pcap, "--adv-a", RECON_ADV_A],
+                           lambda: recon.profile(str(pcap), RECON_ADV_A)),
+               "diff": (["recon", "diff", plain_pcap, pcap],
+                        lambda: recon.diff(str(plain_pcap), str(pcap))),
+               "entropy": (["recon", "entropy", pcap, "--adv-a", RECON_ADV_A],
+                           lambda: recon.payload_entropy(str(pcap), RECON_ADV_A))}
+        recon_report, outs = {}, {}
+        for name, (args, fn) in ops.items():
+            outs[name], _, seconds = cli_child(args)
+            if outs[name] != fn().model_dump_json(indent=2, exclude_none=True) + "\n":
+                raise AssertionError(f"recon {name}: the CLI differs from the in-process call")
+            recon_report[name] = {"wall_s": seconds, "bytes": len(outs[name])}
+        gatt = json.loads(outs["gatt"])
+        want_ops = [{"name": o.name, **({"handle": o.handle} if o.handle is not None else {}),
+                     **({"mtu": o.mtu} if o.mtu is not None else {}),
+                     **({"value_hex": o.value.hex()} if o.value else {}), "decrypted": True}
+                    for o in att_stream(files["plain"][p] for p in files["placed"]
+                                        if p in files["plain"])]
+        if gatt["ops"] != want_ops or gatt["n_decrypted"] != len(files["plain"]):
+            raise AssertionError(f"recon gatt --ltk: {gatt['ops']} for {want_ops}")
+        recon_report["gatt"].update({"ops": [o["name"] for o in gatt["ops"]],
+                                     "n_decrypted": gatt["n_decrypted"],
+                                     "n_data_pdus": gatt["n_data_pdus"]})
+        out, _, seconds = cli_child(["analyze", pcap])
+        if out != "\n".join(analyze.analyze_pcap(str(pcap)).summary_lines()) + "\n":
+            raise AssertionError("analyze: the CLI differs from the in-process call")
+        _, err, plot_s = cli_child(["analyze", pcap, "--plot", out_dir / "recon-plot.png"])
+        no_mpl = importlib.util.find_spec("matplotlib") is None
+        want_line = "# plots skipped (no matplotlib)" if no_mpl else "# plots written: "
+        if not err.strip().splitlines()[-1].startswith(want_line):
+            raise AssertionError(f"analyze --plot: {err[-500:]}")
+        recon_report["analyze"] = {"wall_s": seconds, "lines": out.count("\n"),
+                                   "plot_wall_s": plot_s, "matplotlib": not no_mpl,
+                                   "plot_line": err.strip().splitlines()[-1]}
+        report["recon"] = recon_report
+        args = ["iq-show", files["i8"], "--format", "i8", "--rate", "80e6",
+                "--center", "2.442e9", "--fft", "1024", "--max-samples", "16000000"]
+        out, _, seconds = cli_child(args)
+        if out != cli_in_process(args):
+            raise AssertionError("iq-show: the CLI differs from the in-process call")
+        rows = [ln for ln in out.splitlines() if ln.startswith("offset")]
+        if not rows:
+            raise AssertionError(f"iq-show: no occupied bins in {out[:300]}")
+        report["iq_show"] = {"wall_s": seconds, "rows": len(rows), "first_rows": rows[:3],
+                             "header": out.splitlines()[0]}
+    finally:
+        for path in (files["f32"], files["i8"], *out_dir.glob("recon-*")):
+            path.unlink(missing_ok=True)
+    log({"phase": "recon", **report})
     return report
 
 
@@ -2407,6 +2809,7 @@ def main() -> int:
     run_latency(dev, kernels, launches)
     run_coded(dev, kernels, launches)
     run_ber(dev)
+    run_recon(dev, kernels, launches, nb_i, nb_q, nb_want)
     run_sensitivity(dev, kernels, launches)
 
     from btle_tpu_torch.wideband.sniffer import default_scan_tables

@@ -6,7 +6,8 @@ phy.demodulator.aa_hits, runtime.deinterleave and runtime.ring_source.
 The walk: every port module with a counterpart file in btle_tpu has each
 public callable of the original — those the original defines, and for a
 package the ones it re-exports from modules the port has. The CLI's
-subcommands still to port (ROADMAP Queue 1 item 15) are exempt.
+subcommands still to port (tui, send-cmd, mcp: ROADMAP Queue 1 item
+15 (a2)) are exempt.
 """
 
 import importlib
@@ -32,9 +33,8 @@ from btle_tpu_torch import runtime as truntime
 from btle_tpu_torch import stream as tstream
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-# cli/app.py subcommands the port refuses until ROADMAP Queue 1 item 15
-EXEMPT = {"btle_tpu.cli.app": {"cmd_scan", "cmd_analyze", "cmd_iq_show", "cmd_recon",
-                               "cmd_tui", "cmd_send_cmd", "cmd_mcp"}}
+# cli/app.py subcommands the port lacks until ROADMAP Queue 1 item 15 (a2)
+EXEMPT = {"btle_tpu.cli.app": {"cmd_tui", "cmd_send_cmd", "cmd_mcp"}}
 # the LE Coded and simulation modules: each must be walked (no exemption)
 CODED_AND_SIM = ("btle_tpu.sim", "btle_tpu.sim.ber", "btle_tpu.sim.channel",
                  "btle_tpu.sim.sweep", "btle_tpu.spec.coded", "btle_tpu.phy.viterbi",

@@ -1076,3 +1076,106 @@ def test_fused_modes_at_anchor_snr(dev):
 
     res = sensitivity.run(dev)
     assert sensitivity.check(res) == [], res
+
+
+# --------------------------------------------------------------------------
+# the recon chain and passive decryption on the card
+# --------------------------------------------------------------------------
+
+
+def _cli(argv) -> str:
+    import contextlib
+
+    from btle_tpu_torch.cli.app import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        assert main([str(a) for a in argv]) == 0
+    return out.getvalue()
+
+
+def test_scan_cli_on_card_matches_cpu(dev, tmp_path):
+    """``scan`` (--json and the table) on the card equals --device cpu
+    byte for byte (exact integer paths, no RSSI asked), through K7 and
+    K4."""
+    rng = np.random.default_rng(21)
+    n = 600_000
+    i, q = rng.normal(0, 40, n), rng.normal(0, 40, n)
+    for k in range(12):
+        mac = bytes([k, 1, 2, 3, 4, 5])
+        payload = mac + bytes([6, 0x09]) + b"tag-%d" % (k % 4) + bytes([4, 0xFF, 0x59, 0, k])
+        pdu = np.frombuffer(bytes([0x02, len(payload)]) + payload, np.uint8)
+        ci, cq = gfsk_modulate_float(assemble_phy_bits(B.bytes_to_bits(pdu), 37), 4, 2000.0)
+        at = 2000 + 45_000 * k
+        i[at:at + len(ci)] += ci
+        q[at:at + len(cq)] += cq
+    inter = np.empty(2 * n, np.int16)
+    inter[0::2], inter[1::2] = np.round(i), np.round(q)
+    path = tmp_path / "adv.i16"
+    inter.tofile(path)
+    for extra in (["--json"], []):
+        argv = ["scan", "--bin", path, "--format", "i16", *extra]
+        before = (SCAN_BLOCK.launches, DECODE_CANDIDATES.launches)
+        card = _cli(argv)
+        assert SCAN_BLOCK.launches > before[0] and DECODE_CANDIDATES.launches > before[1]
+        assert card == _cli([*argv, "--device", "cpu"])
+    assert len(card.splitlines()) == 1 + 12
+
+
+def test_wideband_ltk_on_card_matches_cpu(dev, tmp_path):
+    """``wideband --ltk`` through the fused front end on the card: a
+    followed connection keyed by its LL_ENC_REQ/RSP, an encrypted ATT
+    write decrypted in-stream; the CRC-OK events and plaintexts equal the
+    CPU path's, and ``recon gatt --ltk`` on the card's pcap lists the
+    write."""
+    import json
+
+    from btle_tpu_torch.cli import recon
+    from btle_tpu_torch.ll.crypto import LlSession
+    from btle_tpu_torch.stream import NdjsonEmitter, PcapWriter
+    from btle_tpu_torch.wideband.stream import WidebandStreamRunner
+
+    ltk = bytes.fromhex("4C68384139F574D836BCF34E9DFB01BF")
+    skd_m, skd_s = bytes.fromhex("13024212ACDEAF99"), bytes.fromhex("7907E2021B24D379")
+    iv_m, iv_s = bytes.fromhex("BADCAB24"), bytes.fromhex("DEAFBABE")
+    att = bytes([5, 0, 4, 0, 0x12, 0x33, 0x00, 0x07, 0x08])
+    enc = LlSession.from_enc_exchange(ltk, skd_m, skd_s, iv_m, iv_s).encrypt(0x02, att, 0)
+    aa, crc = 0x60850A1B, "a77b22"
+    cr = np.frombuffer(bytes([0x05, 34]) + bytes.fromhex("001830EA965F")[::-1]
+                       + bytes.fromhex("90D7EBB19299")[::-1] + aa.to_bytes(4, "little")
+                       + bytes.fromhex(crc) + bytes([0x02, 0x0F, 0]) + (80).to_bytes(2, "little")
+                       + bytes(2) + (0x07D0).to_bytes(2, "little")
+                       + bytes.fromhex("1FFFFFFFFF")[::-1] + bytes([9 | (5 << 5)]), np.uint8)
+    block = 163_840
+    placements = [(37, 20_000, cr, "555555", "d6be898e")]
+    for pos, octets in ((block + 20_000, bytes([0x03, 23, 0x03]) + bytes(range(8))
+                         + b"\x11\x22" + skd_m + iv_m),
+                        (block + 60_000, bytes([0x03, 13, 0x04]) + skd_s + iv_s),
+                        (block + 100_000, bytes([0x02, len(enc)]) + enc)):
+        placements.append((9, pos, np.frombuffer(octets, np.uint8), crc,
+                           aa.to_bytes(4, "little").hex()))
+    comp = []
+    for ch, pos, pdu, crc_hex, aa_hex in placements:
+        ci, cq = gfsk_modulate_float(assemble_phy_bits(
+            B.bytes_to_bits(pdu), ch, crc_init_hex=crc_hex, access_address_hex=aa_hex), 80)
+        comp.append((ch, pos, ci, cq))
+    wi, wq = compose_wideband(comp, 2 * block)
+    for mode in ("bf16x2w", "f32"):
+        out = []
+        for device in ("cpu", dev):
+            buf = io.StringIO()
+            pcap = tmp_path / f"{mode}-{device}.pcap"
+            runner = WidebandStreamRunner(
+                WidebandSniffer(WidebandConfig(follow_connections=True, fused=True,
+                                               fused_dtype=mode), device=device),
+                ndjson=NdjsonEmitter(buf), pcap=PcapWriter(str(pcap)), ltk=ltk)
+            runner.run_capture(wi, wq)
+            runner.pcap.close()
+            evs = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+            out.append([(e["ch"], e["aa"], e["payload_hex"], e.get("plain_hex"))
+                        for e in evs if e["t"] == "pkt" and e["crc_ok"]])
+        assert out[0] == out[1]
+        assert [e[3] for e in out[1] if e[3]] == [att.hex()]
+        rep = recon.gatt(str(pcap), ltk_hex=ltk.hex())
+        assert [(o.name, o.handle, o.value_hex, o.decrypted) for o in rep.ops] == \
+            [("ATT_WRITE_REQ", 0x33, "0708", True)]

@@ -1,4 +1,6 @@
-"""The PyTorch port imports no JAX and nothing of the JAX package.
+"""The PyTorch port imports no JAX and nothing of the JAX package, and
+none of the JAX package's other dependencies (pydantic, cryptography;
+matplotlib only inside the plotting functions).
 
 tests/conftest.py imports jax into this process, so the import check
 runs every port module (and chip_smoke.py) in a fresh subprocess; a
@@ -24,7 +26,9 @@ PORT_MODULES = [
     "btle_tpu_torch.spec.coded",
     "btle_tpu_torch.golden",
     "btle_tpu_torch.ll",
+    "btle_tpu_torch.ll.crypto",
     "btle_tpu_torch.ll.hop",
+    "btle_tpu_torch.ll.l2cap",
     "btle_tpu_torch.ll.multifollow",
     "btle_tpu_torch.phy",
     "btle_tpu_torch.phy.modulator",
@@ -66,7 +70,15 @@ PORT_MODULES = [
     "btle_tpu_torch.tx.playback",
     "btle_tpu_torch.tx.synth",
     "btle_tpu_torch.cli",
+    "btle_tpu_torch.cli.aggregate",
+    "btle_tpu_torch.cli.analyze",
     "btle_tpu_torch.cli.app",
+    "btle_tpu_torch.cli.events",
+    "btle_tpu_torch.cli.pcap_loader",
+    "btle_tpu_torch.cli.recon",
+    "btle_tpu_torch.cli.vendors",
+    "btle_tpu_torch.utils",
+    "btle_tpu_torch.utils.spectrum",
     "btle_tpu_torch.wideband",
     "btle_tpu_torch.wideband.channelizer",
     "btle_tpu_torch.wideband.coded",
@@ -83,7 +95,8 @@ import importlib, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "btle_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "btle_tpu", "pydantic",
+                                    "pydantic_core", "cryptography", "matplotlib"))
 print(" ".join(bad))
 sys.exit(1 if bad else 0)
 """
@@ -95,8 +108,11 @@ def test_port_modules_load_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|btle_tpu)(\.|\s|$)",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|btle_tpu|pydantic|pydantic_core|cryptography)(\.|\s|$)",
+    re.MULTILINE)
+# matplotlib only inside a function (analyze.py's _plt, the ber plot)
+_TOP_LEVEL_MPL = re.compile(r"^(import|from)\s+matplotlib(\.|\s|$)", re.MULTILINE)
 
 
 @pytest.mark.parametrize(
@@ -106,3 +122,4 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|btle_tpu)(\.|\s|$)",
 def test_port_sources_name_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(src), _FORBIDDEN.search(src).group(0)
+    assert not _TOP_LEVEL_MPL.search(src), _TOP_LEVEL_MPL.search(src).group(0)

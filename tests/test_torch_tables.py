@@ -330,7 +330,9 @@ def test_k5_device_tables_equal_jax(num_taps):
 COPIED_MODULES = ["ll/hop.py", "ll/multifollow.py", "stream/blocks.py",
                   "stream/sources.py", "stream/ndjson.py", "stream/pcap.py",
                   "stream/control.py", "stream/hci.py", "tx/descriptor.py",
-                  "tx/playback.py"]
+                  "tx/playback.py", "ll/l2cap.py", "utils/spectrum.py",
+                  "cli/vendors.py", "cli/aggregate.py", "cli/pcap_loader.py",
+                  "cli/analyze.py"]
 
 
 @pytest.mark.parametrize("module", COPIED_MODULES)
@@ -342,6 +344,16 @@ def test_copied_modules_equal_originals(module):
     trees = [ast.dump(ast.parse((root / pkg / module).read_text()))
              for pkg in ("btle_tpu", "btle_tpu_torch")]
     assert trees[0] == trees[1]
+
+
+def test_oui_registry_byte_equal():
+    """The port's bundled IEEE registry is the JAX package's file."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    port = root / "btle_tpu_torch" / "cli" / "data" / "oui.tsv.gz"
+    assert port.read_bytes() == (root / "btle_tpu" / "cli" / "data" / "oui.tsv.gz").read_bytes()
+    assert port.stat().st_size > 300_000
 
 
 def test_runtime_source_byte_equal():

@@ -3,7 +3,9 @@ follow half of WidebandSniffer) against the JAX package: the wideband
 following scenes of tests/test_hop.py and tests/test_multifollow.py,
 followed with one connection (max_follow 1, ll.hop) and with up to four
 (ll.multifollow), through the plain path and the fused front end. The
-packet lists and the hop-event lists must be equal.
+packet lists and the hop-event lists must be equal. The JAX fused
+front end (Pallas in interpret mode) on the same scenes is held against
+the port's in tests/test_torch_wideband_follow_fused.py.
 """
 
 import dataclasses
@@ -193,19 +195,6 @@ def test_follow_matches_jax(scenes, jax_plain, scene, max_follow, mode):
     assert conn == ref_conn
     if max_follow == 1 and scene != "map_update":
         assert conn == (AA_1 if scene in ("two_connections", "access_addr") else CONN_AA)
-
-
-@pytest.mark.parametrize("scene", [s for s in SCENES if s != "map_update"])
-def test_follow_matches_jax_fused(scenes, scene):
-    """The JAX fused front end (Pallas in interpret mode, "f32") follows
-    as the port's fused front end does, at the scene's own max_follow."""
-    wi, wq = scenes[scene]
-    mf = SCENES[scene][1]
-    _, ref, ref_events = _run(JSniffer, JConfig, wi, wq, mf, interpret=True,
-                              fused=True, fused_tile=512, fused_dtype="f32")
-    _, got, events = _port(wi, wq, mf, "f32")
-    assert got == ref and events == ref_events
-    assert sum(p[3] for p in got) >= 2
 
 
 # --------------------------------------------------------------------------
