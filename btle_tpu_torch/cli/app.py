@@ -1,8 +1,8 @@
 """btle_tpu_torch command-line interface.
 
 The port's tool-layer surface, wired to IQ capture files, stdin streams
-and live UDP ingest (the ``btle_tpu`` CLI's counterpart; its tui,
-send-cmd and mcp subcommands are not ported yet):
+and live UDP ingest (the ``btle_tpu`` CLI's counterpart, all eleven of
+its subcommands):
 
   decode    sniff one channel from an IQ file/stdin (btle_rx equivalent;
             --phy coded8|coded2 decodes LE Coded captures)
@@ -16,10 +16,13 @@ send-cmd and mcp subcommands are not ported yet):
   iq-show   waterfall spectrogram + occupancy summary of an IQ capture
   recon     quickscan | profile | diff | entropy | gatt on a pcap
   ber       BER sweep (test_btle_ber equivalent)
+  tui       terminal device dashboard over a capture (curses)
+  send-cmd  retune a running receiver (ble_send_cmd parity: UDP or serial)
+  mcp       the MCP recon server (needs the optional ``mcp`` package)
 
 The scans run on the CUDA card unless ``--device`` names another device
-(``--device cpu`` runs the plain PyTorch path); analyze, iq-show, recon
-and the decryption are host-side, as in the JAX package.
+(``--device cpu`` runs the plain PyTorch path); analyze, iq-show, recon,
+send-cmd and the decryption are host-side, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -716,6 +719,59 @@ def cmd_ber(args):
     return 0
 
 
+def cmd_tui(args):
+    from ..stream import iq_file_source
+    from .events import packet_event_to_model
+    from .tui import run_curses
+
+    sniffer = _build_sniffer(args)
+    events = sniffer.run(iq_file_source(args.bin, args.format))
+    models = [packet_event_to_model(e) for e in events if e.header is not None]
+    rate = args.sps * (2 if getattr(args, "phy", "1m") == "2m" else 1) * 1e6
+    run_curses(models, max_seconds=args.seconds, iq_path=args.bin,
+               iq_format=args.format, sample_rate_hz=rate)
+    return 0
+
+
+def cmd_send_cmd(args):
+    from ..stream.control import parse_register_file, send_command
+
+    regs = parse_register_file(args.register_file) if args.register_file else []
+    kw = dict(
+        channel=args.channel,
+        crc_init=int(args.crc_init, 16) if args.crc_init else None,
+        access_addr=int(args.access_addr, 16) if args.access_addr else None,
+        regs=regs,
+    )
+    if args.serial:
+        # byte-framed serial HCI transport (stream/hci.py — the chip's
+        # UART HCI path); --serial takes any byte device (tty, pty, pipe)
+        import os
+
+        from ..stream.hci import send_command_serial
+
+        fd = os.open(args.serial, os.O_WRONLY | os.O_NOCTTY)
+        try:
+            n = send_command_serial(fd, **kw)
+        finally:
+            os.close(fd)
+        print(f"# sent {n} register write(s) over serial {args.serial}",
+              file=sys.stderr)
+        return 0
+    if args.port is None:
+        raise SystemExit("send-cmd: --port or --serial required")
+    n = send_command(args.port, args.host, **kw)
+    print(f"# sent {n} register write(s) to {args.host}:{args.port}",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_mcp(args):
+    from .mcp_server import main as mcp_main
+
+    return mcp_main()
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="btle_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -777,6 +833,26 @@ def build_parser():
                    help="torch device of the harness (default cuda; cpu "
                         "runs the plain PyTorch path)")
     p.set_defaults(fn=cmd_ber)
+    p = sub.add_parser("tui", help="terminal device dashboard over a capture")
+    _add_rx_args(p)
+    p.add_argument("--seconds", type=float, default=None, help="auto-exit after N s")
+    p.set_defaults(fn=cmd_tui)
+    p = sub.add_parser("send-cmd", help="retune a running receiver "
+                       "(ble_send_cmd parity: channel / CRC init / AA)")
+    p.add_argument("--port", type=int, default=None,
+                   help="receiver's --control-port (UDP transport)")
+    p.add_argument("--serial", default=None, metavar="DEV",
+                   help="send over a byte-framed serial device instead "
+                        "of UDP (the chip's UART HCI path; stream/hci.py)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("-n", "--channel", type=int, default=None)
+    p.add_argument("-c", "--crc-init", default=None, help="hex, e.g. 0x555555")
+    p.add_argument("-a", "--access-addr", default=None, help="hex, e.g. 0x8E89BED6")
+    p.add_argument("-w", "--register-file", default=None,
+                   help="file of 'reg_idx reg_val' lines (# comments)")
+    p.set_defaults(fn=cmd_send_cmd)
+    p = sub.add_parser("mcp", help="run the MCP recon server")
+    p.set_defaults(fn=cmd_mcp)
     return ap
 
 

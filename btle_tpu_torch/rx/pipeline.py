@@ -152,9 +152,16 @@ def decode_block(i, q, aa_bits, aa_mask, whiten, crc_init, adv_flag,
 
     hit, bits = scan_block(i, q, aa_bits, aa_mask, sps, lag)
     pos, valid, num_hits = earliest_hits(hit, max_candidates, min_pos)
-    pkt_bytes, plen, crc_match, len_ok = decode_candidates(
+    decoded = decode_candidates(
         bits, pos, whiten, crc_init, adv_flag, sps=sps, clamp_tail=True)
+    return block_candidates(i, q, pos, valid, num_hits, decoded, sps, with_mag)
 
+
+def block_candidates(i, q, pos, valid, num_hits, decoded, sps: int,
+                     with_mag: bool = True) -> dict:
+    """decode_block's output dict from its candidate positions and the
+    candidate decode's (pdu_bytes, payload_len, crc_match, len_ok)."""
+    pkt_bytes, plen, crc_match, len_ok = decoded
     # RSSI statistic: mean(|I|+|Q|) over the 32-symbol AA window
     # (btle_rx.c:2234-2252), over integer samples as the XLA path takes
     # it (float channel samples truncate toward zero)

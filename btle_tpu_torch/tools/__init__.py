@@ -1,6 +1,6 @@
 """Hopper counterparts of the TPU tools under ``tools/``: the development
-probes, the card gates and benches, and the BER and sensitivity
-sweeps.
+probes, the card gates and benches, the BER and sensitivity sweeps, the
+narrowband and multi-device benches and the vector generator.
 
 Each module asks its TPU tool's question of the H100 and prints the same
 kind of result lines; each has a ``run(device) -> dict`` and a ``main()``
@@ -19,6 +19,9 @@ flags), and runs nothing at import:
   ber_2m_wideband      LE 2M against 1M decode counts through the channelizer
   dev_2m_cutoff        the LE 2M channel-filter cutoff sweep
   sensitivity          every shipped fused mode at the anchor SNR
+  bench_narrowband     the single-channel scan over 1M-sample blocks
+  bench_multichip      the sharded scan over a mesh sweep of ranks
+  gen_test_vectors     per-stage golden vectors (``main(argv)`` only)
 
 The probes' Mosaic variants (strided rolls, AA_GRP groupings, VMEM
 scratch round trips, block-diagonal matmuls) collapse onto one Hopper

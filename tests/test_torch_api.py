@@ -5,9 +5,9 @@ phy.demodulator.aa_hits, runtime.deinterleave and runtime.ring_source.
 
 The walk: every port module with a counterpart file in btle_tpu has each
 public callable of the original — those the original defines, and for a
-package the ones it re-exports from modules the port has. The CLI's
-subcommands still to port (tui, send-cmd, mcp: ROADMAP Queue 1 item
-15 (a2)) are exempt.
+package the ones it re-exports from modules the port has. Nothing is
+exempt, and every module of btle_tpu has a port file (the two Pallas
+files under their port names).
 """
 
 import importlib
@@ -33,8 +33,11 @@ from btle_tpu_torch import runtime as truntime
 from btle_tpu_torch import stream as tstream
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-# cli/app.py subcommands the port lacks until ROADMAP Queue 1 item 15 (a2)
-EXEMPT = {"btle_tpu.cli.app": {"cmd_tui", "cmd_send_cmd", "cmd_mcp"}}
+# public callables a port module may lack: none
+EXEMPT = {}
+# the Pallas modules, ported under other names
+PALLAS_PORTS = {"phy/pallas_scan.py": "phy/scan_kernel.py",
+                "rx/pallas_decode.py": "rx/decode_kernel.py"}
 # the LE Coded and simulation modules: each must be walked (no exemption)
 CODED_AND_SIM = ("btle_tpu.sim", "btle_tpu.sim.ber", "btle_tpu.sim.channel",
                  "btle_tpu.sim.sweep", "btle_tpu.spec.coded", "btle_tpu.phy.viterbi",
@@ -60,6 +63,18 @@ PAIRS = sorted(
     for p in (ROOT / "btle_tpu_torch").rglob("*.py")
     if p.name != "__main__.py"
     and (ROOT / "btle_tpu" / p.relative_to(ROOT / "btle_tpu_torch")).exists())
+
+
+def test_every_jax_module_has_a_port_file():
+    missing = [rel for rel in (p.relative_to(ROOT / "btle_tpu").as_posix()
+                               for p in (ROOT / "btle_tpu").rglob("*.py"))
+               if not (ROOT / "btle_tpu_torch" / PALLAS_PORTS.get(rel, rel)).exists()]
+    assert not missing, missing
+    walked = {j for j, _ in PAIRS}
+    assert {"btle_tpu.cli.app", "btle_tpu.cli.tui", "btle_tpu.cli.mcp_server",
+            "btle_tpu.cli.rx_proc", "btle_tpu.cli.tx_builder", "btle_tpu.ll.extchain",
+            "btle_tpu.utils.vectors", "btle_tpu.utils.profiling", "btle_tpu.dist",
+            "btle_tpu.dist.shard", "btle_tpu.dist.multihost"} <= walked
 
 
 def test_walk_covers_coded_and_sim():

@@ -1179,3 +1179,85 @@ def test_wideband_ltk_on_card_matches_cpu(dev, tmp_path):
         rep = recon.gatt(str(pcap), ltk_hex=ltk.hex())
         assert [(o.name, o.handle, o.value_hex, o.decrypted) for o in rep.ops] == \
             [("ATT_WRITE_REQ", 0x33, "0708", True)]
+
+
+def _nb_capture(path):
+    """Three ADV_NONCONN_IND packets on channel 37 (the port's TX, CPU),
+    int16 at amplitude 32 with gaps: the MCP tools' capture."""
+    from btle_tpu_torch.tx import parse_descriptor_sequence, synthesize
+
+    descs = [f"37-ADV_NONCONN_IND-TxAdd-0-RxAdd-0-AdvA-0a0b0c0d0e{k:02x}-AdvData-0201{k:02x}"
+             for k in range(3)]
+    specs, _ = parse_descriptor_sequence(descs)
+    pkts = synthesize(specs, flavor="c", sps=4, device="cpu")
+    gap = np.zeros(4000, np.int16)
+    i = np.concatenate([np.concatenate([p.i.astype(np.int16) * 32, gap]) for p in pkts])
+    q = np.concatenate([np.concatenate([p.q.astype(np.int16) * 32, gap]) for p in pkts])
+    np.stack([i, q], axis=1).reshape(-1).tofile(path)
+    return str(path)
+
+
+def test_mcp_tools_on_card_match_cpu(dev, tmp_path):
+    """The decoding MCP tools on the card (K7 and K4 launched) give the
+    dicts they give with device="cpu"."""
+    from btle_tpu_torch.cli import mcp_server as T
+
+    cap = _nb_capture(tmp_path / "cap.i16")
+    before = (SCAN_BLOCK.launches, DECODE_CANDIDATES.launches)
+    assert T.ble_quickscan(cap) == T.ble_quickscan(cap, device="cpu")
+    assert (SCAN_BLOCK.launches, DECODE_CANDIDATES.launches) > before
+    adv = "0a:0b:0c:0d:0e:01"
+    assert T.ble_profile(adv, iq_file=cap) == T.ble_profile(adv, iq_file=cap, device="cpu")
+    got = [T.ble_capture_to_pcap(cap, str(tmp_path / f"{d}.pcap"), device=d)
+           for d in ("cuda", "cpu")]
+    assert got[0]["n_crc_ok"] == got[1]["n_crc_ok"] == 3
+    assert _pcap_packets(tmp_path / "cuda.pcap") == _pcap_packets(tmp_path / "cpu.pcap")
+
+
+def _pcap_packets(path):
+    from btle_tpu_torch.stream.pcap import read_pcap
+
+    return [(r.channel, r.access_addr, bytes(r.packet)) for r in read_pcap(str(path))]
+
+
+def test_bench_narrowband_on_card_matches_twins(dev):
+    """bench_narrowband on the card: the kernels' checksum equals the plain
+    twins' over the same blocks, and the profiler window reads device
+    time."""
+    from btle_tpu_torch.tools import bench_narrowband as bn
+
+    n = 1 << 17
+    before = (SCAN_BLOCK.launches, DECODE_CANDIDATES.launches)
+    res = bn.run(dev, n=n, iters=8, trials=2)
+    assert SCAN_BLOCK.launches > before[0] and DECODE_CANDIDATES.launches > before[1]
+    plain = bn.checksum(bn.scan_step(dev, plain=True), bn.make_blocks(dev, n))
+    assert res["checksum"] == plain
+    assert res["ms_per_block"] > 0 and 0.0 <= res["idle_share"] < 1.0
+    assert res["host_events_per_block"] > 0 and res["host_event_ms_per_block"] > 0
+
+
+def test_sharded_scan_nccl_world_one(dev):
+    """The sharded scan over NCCL at world size 1, mesh (1, 1): the
+    branch-split path and the fused path give the single-device
+    sniffer's CRC-OK packets of a two-block scene."""
+    import torch.distributed as dist
+
+    from btle_tpu_torch.dist import ShardedWidebandScan, make_mesh
+    from btle_tpu_torch.dist.dryrun import free_port
+
+    wi, wq = _scene(13, chans=(37, 4, 22, 39, 12, 30), n=240_000, spacing=35_000)
+    want = sorted((p.channel, p.pdu_bytes.tobytes()) for p in WidebandSniffer(
+        WidebandConfig(fused=True), device=dev).run(wi, wq) if p.crc_ok)
+    assert len(want) == 6
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        for kw in ({}, {"fused": True, "fused_dtype": "bf16x2w"},
+                   {"fused": True, "fused_dtype": "f32"}):
+            scan = ShardedWidebandScan(mesh, block_wb=len(wi), **kw)
+            got = sorted((p.channel, p.pdu_bytes.tobytes())
+                         for p in scan.gather_packets(scan(wi, wq)) if p.crc_ok)
+            assert got == want, kw
+    finally:
+        dist.destroy_process_group()

@@ -44,3 +44,38 @@ def test_wideband_coded_roundtrip_equals_jax(tmp_path):
     ok = [ln for ln in got if " crc0 " in ln]
     assert ok and all(ln.startswith("ch17") for ln in ok)
     assert ok[0].endswith("0102cafe")
+
+
+SUBCOMMANDS = ("decode", "scan", "wideband", "tx", "analyze", "iq-show", "recon", "ber",
+               "tui", "send-cmd", "mcp")
+
+
+def _app(pkg):
+    import importlib
+
+    return importlib.import_module(f"{pkg}.cli.app")
+
+
+@pytest.mark.parametrize("pkg", ["btle_tpu", "btle_tpu_torch"])
+def test_app_layer_subcommands(pkg, capsys, monkeypatch):
+    """Both CLIs have the same eleven subcommands; ``tui --help`` and
+    ``send-cmd --help`` print their options, and ``mcp`` prints the
+    not-installed line and returns 1 where the mcp package is missing
+    (in this process: the parser and main of each package)."""
+    import sys
+
+    app = _app(pkg)
+    choices = app.build_parser()._subparsers._group_actions[0].choices
+    assert set(choices) == set(SUBCOMMANDS)
+    for cmd, flags in (("tui", ("--seconds", "--bin", "--channel")),
+                       ("send-cmd", ("--serial", "--port", "--register-file"))):
+        with pytest.raises(SystemExit) as exit_:
+            app.main([cmd, "--help"])
+        assert exit_.value.code == 0
+        out = capsys.readouterr().out
+        assert all(f in out for f in flags), (cmd, out)
+        if pkg == "btle_tpu_torch" and cmd == "tui":
+            assert "--device" in out
+    monkeypatch.setitem(sys.modules, "mcp", None)
+    assert app.main(["mcp"]) == 1
+    assert "mcp package not installed" in capsys.readouterr().err

@@ -1,6 +1,6 @@
 """The PyTorch port imports no JAX and nothing of the JAX package, and
 none of the JAX package's other dependencies (pydantic, cryptography;
-matplotlib only inside the plotting functions).
+matplotlib, curses and mcp only inside the functions that need them).
 
 tests/conftest.py imports jax into this process, so the import check
 runs every port module (and chip_smoke.py) in a fresh subprocess; a
@@ -22,11 +22,16 @@ PORT_MODULES = [
     "btle_tpu_torch._build",
     "btle_tpu_torch._device",
     "btle_tpu_torch.convert",
+    "btle_tpu_torch.dist",
+    "btle_tpu_torch.dist.dryrun",
+    "btle_tpu_torch.dist.multihost",
+    "btle_tpu_torch.dist.shard",
     "btle_tpu_torch.spec",
     "btle_tpu_torch.spec.coded",
     "btle_tpu_torch.golden",
     "btle_tpu_torch.ll",
     "btle_tpu_torch.ll.crypto",
+    "btle_tpu_torch.ll.extchain",
     "btle_tpu_torch.ll.hop",
     "btle_tpu_torch.ll.l2cap",
     "btle_tpu_torch.ll.multifollow",
@@ -56,6 +61,8 @@ PORT_MODULES = [
     "btle_tpu_torch.tools",
     "btle_tpu_torch.tools._kernels",
     "btle_tpu_torch.tools._measure",
+    "btle_tpu_torch.tools.bench_multichip",
+    "btle_tpu_torch.tools.bench_narrowband",
     "btle_tpu_torch.tools.ber_2m_wideband",
     "btle_tpu_torch.tools.ber_sweep",
     "btle_tpu_torch.tools.dev_2m_cutoff",
@@ -63,6 +70,7 @@ PORT_MODULES = [
     "btle_tpu_torch.tools.dev_aagrp_repro",
     "btle_tpu_torch.tools.dev_roll_experiment",
     "btle_tpu_torch.tools.dev_rollscale",
+    "btle_tpu_torch.tools.gen_test_vectors",
     "btle_tpu_torch.tools.kernel_ab",
     "btle_tpu_torch.tools.sensitivity",
     "btle_tpu_torch.tx",
@@ -74,11 +82,17 @@ PORT_MODULES = [
     "btle_tpu_torch.cli.analyze",
     "btle_tpu_torch.cli.app",
     "btle_tpu_torch.cli.events",
+    "btle_tpu_torch.cli.mcp_server",
     "btle_tpu_torch.cli.pcap_loader",
     "btle_tpu_torch.cli.recon",
+    "btle_tpu_torch.cli.rx_proc",
+    "btle_tpu_torch.cli.tui",
+    "btle_tpu_torch.cli.tx_builder",
     "btle_tpu_torch.cli.vendors",
     "btle_tpu_torch.utils",
+    "btle_tpu_torch.utils.profiling",
     "btle_tpu_torch.utils.spectrum",
+    "btle_tpu_torch.utils.vectors",
     "btle_tpu_torch.wideband",
     "btle_tpu_torch.wideband.channelizer",
     "btle_tpu_torch.wideband.coded",
@@ -96,7 +110,8 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "btle_tpu", "pydantic",
-                                    "pydantic_core", "cryptography", "matplotlib"))
+                                    "pydantic_core", "cryptography", "matplotlib",
+                                    "curses", "_curses", "mcp"))
 print(" ".join(bad))
 sys.exit(1 if bad else 0)
 """
@@ -111,8 +126,10 @@ def test_port_modules_load_no_jax():
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|btle_tpu|pydantic|pydantic_core|cryptography)(\.|\s|$)",
     re.MULTILINE)
-# matplotlib only inside a function (analyze.py's _plt, the ber plot)
-_TOP_LEVEL_MPL = re.compile(r"^(import|from)\s+matplotlib(\.|\s|$)", re.MULTILINE)
+# matplotlib, curses and mcp only inside a function (analyze.py's _plt,
+# the ber plot, tui.run_curses, mcp_server.build_server)
+_TOP_LEVEL_MPL = re.compile(r"^(import|from)\s+(matplotlib|curses|mcp)(\.|\s|$)",
+                            re.MULTILINE)
 
 
 @pytest.mark.parametrize(

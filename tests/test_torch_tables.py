@@ -332,7 +332,7 @@ COPIED_MODULES = ["ll/hop.py", "ll/multifollow.py", "stream/blocks.py",
                   "stream/control.py", "stream/hci.py", "tx/descriptor.py",
                   "tx/playback.py", "ll/l2cap.py", "utils/spectrum.py",
                   "cli/vendors.py", "cli/aggregate.py", "cli/pcap_loader.py",
-                  "cli/analyze.py"]
+                  "cli/analyze.py", "ll/extchain.py", "cli/tui.py", "utils/vectors.py"]
 
 
 @pytest.mark.parametrize("module", COPIED_MODULES)
