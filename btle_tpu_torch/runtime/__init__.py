@@ -118,6 +118,7 @@ class IqRingBuffer:
             raise RuntimeError("native runtime unavailable (g++ build failed)")
         self._lib = lib
         self._ptr = lib.iq_ring_create(capacity_pairs)
+        self._refused_uncounted = 0   # refusals the native counter missed
 
     def close(self):
         if self._ptr:
@@ -134,22 +135,36 @@ class IqRingBuffer:
     def write(self, interleaved: np.ndarray, fmt: str = "i16",
               scale: float = 256.0) -> int:
         """Append interleaved I/Q pairs (i8, i16, or f32 scaled by
-        ``scale`` and rounded to int16); returns the pairs written."""
+        ``scale`` and rounded to int16); returns the pairs written.
+
+        Every refused pair counts in ``dropped``. The native writers
+        convert in 4096-pair chunks and stop at the first chunk the ring
+        cannot take whole, counting only that chunk's shortfall; the
+        rest of a refused write is counted here. The native UDP thread
+        (runtime.cpp's listener) writes through the same chunked writers
+        and still undercounts a datagram of more than 4096 pairs that
+        meets a full ring."""
         arr = np.ascontiguousarray(interleaved)
         n_pairs = len(arr) // 2
+        lib, ptr = self._lib, self._ptr
+        counted = lib.iq_ring_dropped(ptr)
         if fmt == "i8":
             cp = arr.astype(np.int8, copy=False).ctypes.data_as(
                 ctypes.POINTER(ctypes.c_int8))
-            return int(self._lib.iq_ring_write_i8(self._ptr, cp, n_pairs))
-        if fmt == "i16":
+            written = int(lib.iq_ring_write_i8(ptr, cp, n_pairs))
+        elif fmt == "i16":
             cp = arr.astype(np.int16, copy=False).ctypes.data_as(
                 ctypes.POINTER(ctypes.c_int16))
-            return int(self._lib.iq_ring_write_i16(self._ptr, cp, n_pairs))
-        if fmt == "f32":
+            written = int(lib.iq_ring_write_i16(ptr, cp, n_pairs))
+        elif fmt == "f32":
             cp = arr.astype(np.float32, copy=False).ctypes.data_as(
                 ctypes.POINTER(ctypes.c_float))
-            return int(self._lib.iq_ring_write_f32(self._ptr, cp, n_pairs, scale))
-        raise ValueError(fmt)
+            written = int(lib.iq_ring_write_f32(ptr, cp, n_pairs, scale))
+        else:
+            raise ValueError(fmt)
+        counted = lib.iq_ring_dropped(ptr) - counted
+        self._refused_uncounted += n_pairs - written - counted
+        return written
 
     # -------------------------- consumer --------------------------
     def read_block(self, scan_len: int, halo: int):
@@ -179,7 +194,9 @@ class IqRingBuffer:
 
     @property
     def dropped(self) -> int:
-        return int(self._lib.iq_ring_dropped(self._ptr))
+        """Pairs the ring refused: the native counter, and what the
+        port's ``write`` counted beyond it."""
+        return int(self._lib.iq_ring_dropped(self._ptr)) + self._refused_uncounted
 
     @property
     def total_written(self) -> int:

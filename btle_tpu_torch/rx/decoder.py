@@ -28,6 +28,7 @@ from ..spec import bits as B
 from ..spec import crc24 as C
 from ..spec import whitening as W
 from ..spec.constants import ADV_ACCESS_ADDRESS_HEX, ADV_CRC_INIT_HEX, MAX_PDU_CRC_BYTE
+from ..utils.profiling import count, span
 from .pipeline import (AA_BITS, decode_block, pack_candidates, rssi_dbm_from_mag,
                        scan_block, unpack_candidates)
 
@@ -143,6 +144,7 @@ def _scan_tables(aa_hex: str, aa_mask_hex: str | None, channel: int, raw: bool,
     """One channel's decode tables on ``device`` — AA bits (32,), care mask
     (32,), whitening row (1, 336), CRC init (1,), adv flag (1,) — built
     once per receive configuration, not once per block."""
+    count("h2d_copies", 5)
     aa_bits = B.hex_to_bits(aa_hex)
     if aa_mask_hex:
         aa_mask = B.hex_to_bits(aa_mask_hex)
@@ -190,16 +192,23 @@ def stream_decode(
     consumed boundary); hits before it neither emit nor eat samples.
     """
     dev = resolve_device(device)
-    i = np.asarray(i, dtype=np.int16)
-    q = np.asarray(q, dtype=np.int16)
-    if access_address is None:
-        aa_hex = ADV_ACCESS_ADDRESS_HEX
-    else:
-        aa_hex = int(access_address).to_bytes(4, "little").hex()
-    if crc_init_table is None:
-        crc_init_table = C.lfsr_init_to_table_init(ADV_CRC_INIT_HEX)
-    tables = _scan_tables(aa_hex, aa_mask_hex, int(channel), bool(raw),
-                          int(crc_init_table), dev)
+    with span("stream_decode.stage"):
+        i = np.asarray(i, dtype=np.int16)
+        q = np.asarray(q, dtype=np.int16)
+        if access_address is None:
+            aa_hex = ADV_ACCESS_ADDRESS_HEX
+        else:
+            aa_hex = int(access_address).to_bytes(4, "little").hex()
+        if crc_init_table is None:
+            crc_init_table = C.lfsr_init_to_table_init(ADV_CRC_INIT_HEX)
+        tables = _scan_tables(aa_hex, aa_mask_hex, int(channel), bool(raw),
+                              int(crc_init_table), dev)
+        # Dense device decode: only the tiny candidate arrays come back to
+        # the host (the bit lattice and hit mask stay on device), in one
+        # copy per call.
+        count("h2d_copies", 2)
+        ti = torch.as_tensor(i, device=dev)[None]
+        tq = torch.as_tensor(q, device=dev)[None]
 
     adv = channel in (37, 38, 39)
     n_lattice = len(i) - 1
@@ -209,23 +218,21 @@ def stream_decode(
     if max_candidates is None:
         max_candidates = max(16, n_lattice // 2048)
 
-    # Dense device decode: only the tiny candidate arrays come back to the
-    # host (the bit lattice and hit mask stay on device), in one copy per
-    # call. When a block has more AA hits than candidate slots (loose
+    # When a block has more AA hits than candidate slots (loose
     # --access-mask, dense air), the scan continues from the consumed
     # cursor until the territory is covered.
-    ti = torch.as_tensor(i, device=dev)[None]
-    tq = torch.as_tensor(q, device=dev)[None]
     limit = scan_limit if scan_limit is not None else n_lattice
     res = BlockDecodeResult()
     cursor = start
     done = False
     while not done:
-        packed, layout = pack_candidates(decode_block(
-            ti, tq, *tables, sps=sps, lag=1, max_candidates=max_candidates,
-            with_mag=rssi, min_pos=cursor))
-        out = {k: v[0] for k, v in
-               unpack_candidates(packed.cpu().numpy(), layout).items()}
+        with span("stream_decode.launch"):
+            packed, layout = pack_candidates(decode_block(
+                ti, tq, *tables, sps=sps, lag=1, max_candidates=max_candidates,
+                with_mag=rssi, min_pos=cursor))
+        with span("stream_decode.wait"):
+            out = {k: v[0] for k, v in
+                   unpack_candidates(packed.cpu().numpy(), layout).items()}
         pos_a = out["pos"]
         valid_a = out["valid"]
         plen_a = out["payload_len"]

@@ -32,6 +32,7 @@ from ..ll.pdu import (
 from ..rx.decoder import stream_decode
 from ..spec import crc24 as C
 from ..spec.constants import ADV_ACCESS_ADDRESS
+from ..utils.profiling import span
 from .blocks import DEFAULT_SCAN_LEN, OverlapBlockIterator
 from .ndjson import NdjsonEmitter
 from .pcap import PcapWriter
@@ -118,6 +119,7 @@ class Sniffer:
             raise ValueError("rotate_channels and hop are mutually exclusive")
         self._rotate_idx = 0
         self._dwell_start_us = 0
+        self.blocks = 0                 # blocks processed: a span's block
         if config.rotate_channels:
             self.channel = config.rotate_channels[0]
 
@@ -153,19 +155,28 @@ class Sniffer:
 
     # ------------------------------------------------------------------
     def _process_block(self, block, it):
+        with span("sniffer.block", block=self.blocks):
+            self.blocks += 1
+            cfg = self.cfg
+            res = stream_decode(
+                block.i, block.q, self.channel,
+                access_address=self.access_addr,
+                crc_init_table=self.crc_init_internal,
+                aa_mask_hex=cfg.access_mask_hex,
+                sps=cfg.sps,
+                scan_limit=block.scan_len,
+                raw=cfg.raw,
+                rssi=cfg.rssi,
+                start=block.skip,
+                device=self.device,
+            )
+            with span("sniffer.handle"):
+                self._handle_block(block, it, res)
+
+    def _handle_block(self, block, it, res):
+        """A decoded block's packets, the iterator's consumed boundary,
+        and the hop / rotate bookkeeping."""
         cfg = self.cfg
-        res = stream_decode(
-            block.i, block.q, self.channel,
-            access_address=self.access_addr,
-            crc_init_table=self.crc_init_internal,
-            aa_mask_hex=cfg.access_mask_hex,
-            sps=cfg.sps,
-            scan_limit=block.scan_len,
-            raw=cfg.raw,
-            rssi=cfg.rssi,
-            start=block.skip,
-            device=self.device,
-        )
         # decode-time receive config: hop retunes apply from the NEXT
         # block (the whole block was decoded with one channel, matching
         # the C tool where receiver_controller runs after receiver())

@@ -19,6 +19,7 @@ import torch
 
 from .._device import as_tensor, resolve_device
 from ..spec.channels import CHANNEL_TO_GRID, GRID_TO_CHANNEL
+from ..utils.profiling import count
 
 M = 40                 # channels / DFT size
 D = 20                 # decimation (output 2x oversampled: 4 Msps)
@@ -180,6 +181,7 @@ def channelize(i, q, num_taps: int = DEFAULT_TAPS, has_context: bool = False,
                      has_context)
     lhs = f_t.reshape(2, D, -1)                                    # (2, 20, J)
     kern, row_of_p = _poly_kernel(num_taps, cutoff_mhz)
+    count("h2d_copies", 4)      # the DFT pair, the kernel, the row map
     er, ei = (torch.as_tensor(a, device=dev) for a in _dft_matrix())
     with true_fp32():
         u = torch.nn.functional.conv1d(

@@ -28,6 +28,7 @@ from ..spec import bits as B
 from ..spec import crc24 as C
 from ..spec import whitening as W
 from ..spec.constants import ADV_ACCESS_ADDRESS_HEX
+from ..utils.profiling import count, span
 from .channelizer import D, DEFAULT_TAPS, M, bin_to_channel, channelize
 
 CH_SPS = 4  # channelizer output is 4 Msps = 4 samples/symbol
@@ -265,6 +266,7 @@ class WidebandSniffer:
         self._ctx_i = np.zeros(self._ctx_len, np.float32)
         self._ctx_q = np.zeros(self._ctx_len, np.float32)
         self.truncated_channels = 0   # candidate-capacity overflows seen
+        self.blocks_dispatched = 0    # scan_async calls: a handle's "block"
         self._aa_np = None            # per-block snapshot of aa_rows
         # connection following: the wideband receiver hears all 37 data
         # channels at once, so tracking a connection only swaps AA/CRC rows
@@ -284,6 +286,7 @@ class WidebandSniffer:
         """A host array as a new tensor on the device: on a card through
         pinned memory, non-blocking (no wait for the scans in flight,
         which keep the tensors they were given)."""
+        count("h2d_copies")
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type != "cuda":
             return t.clone()
@@ -377,7 +380,36 @@ class WidebandSniffer:
         device-to-host copy is in flight behind a CUDA event, so a live
         loop can dispatch block k and consume block k-1 meanwhile. Handles
         MUST be consumed in dispatch order (the span-eating cursors advance
-        per block)."""
+        per block). The handle's ``"block"`` is the block's dispatch
+        sequence number, which the tracer's spans of the block carry."""
+        k = self.blocks_dispatched
+        self.blocks_dispatched += 1
+        with span("scan_async", block=k):
+            with span("scan_async.stage"):
+                dxi, dxq = self._stage(i_wb, q_wb)
+            with span("scan_async.launch"):
+                args = (dxi, dxq, self.aa_rows, self.aa_mask, self.whiten_rows,
+                        self.crc_inits, self.adv_flags)
+                if self.cfg.fused:
+                    from .fused import wideband_scan_fused
+
+                    out = wideband_scan_fused(*args, tile=self.cfg.fused_tile,
+                                              compute_dtype=self.cfg.fused_dtype,
+                                              **self._scan_kwargs())
+                else:
+                    out = wideband_scan(*args, **self._scan_kwargs())
+                packed, layout = pack_candidates(out)
+                host, done = self._fetch(packed)
+        # snapshot the keys THIS scan used
+        return {"host": host, "done": done, "layout": layout,
+                "dxi": dxi, "dxq": dxq,
+                "aa_np": self._aa_host,
+                "aa_rows": self.aa_rows, "crc_inits": self.crc_inits,
+                "block": k}
+
+    def _stage(self, i_wb, q_wb):
+        """The block with the filter context before it, uploaded; the
+        context of the next block kept."""
         # integer wire formats stay integer on the host->device link (the
         # cast runs on the device)
         i_wb = np.asarray(i_wb)
@@ -394,25 +426,7 @@ class WidebandSniffer:
         step = self.cfg.scan_len_ch * D
         self._ctx_i = xi[step : step + self._ctx_len].copy()
         self._ctx_q = xq[step : step + self._ctx_len].copy()
-        dxi = self._upload(xi)
-        dxq = self._upload(xq)
-        args = (dxi, dxq, self.aa_rows, self.aa_mask, self.whiten_rows,
-                self.crc_inits, self.adv_flags)
-        if self.cfg.fused:
-            from .fused import wideband_scan_fused
-
-            out = wideband_scan_fused(*args, tile=self.cfg.fused_tile,
-                                      compute_dtype=self.cfg.fused_dtype,
-                                      **self._scan_kwargs())
-        else:
-            out = wideband_scan(*args, **self._scan_kwargs())
-        packed, layout = pack_candidates(out)
-        host, done = self._fetch(packed)
-        # snapshot the keys THIS scan used
-        return {"host": host, "done": done, "layout": layout,
-                "dxi": dxi, "dxq": dxq,
-                "aa_np": self._aa_host,
-                "aa_rows": self.aa_rows, "crc_inits": self.crc_inits}
+        return self._upload(xi), self._upload(xq)
 
     def _wait(self, host, done, layout):
         if done is not None:
@@ -421,7 +435,14 @@ class WidebandSniffer:
 
     def consume_scan(self, handle) -> list[WidebandPacket]:
         """Wait for + walk one scan_async() handle (in dispatch order)."""
-        out = self._wait(handle["host"], handle["done"], handle["layout"])
+        with span("consume_scan", block=handle.get("block", -1)):
+            with span("consume_scan.wait"):
+                out = self._wait(handle["host"], handle["done"], handle["layout"])
+            return self._walk(handle, out)
+
+    def _walk(self, handle, out) -> list[WidebandPacket]:
+        """The walk of one block's candidates: span-eating, parsing,
+        following, and a rescan of each channel whose slots overflowed."""
         dxi, dxq = handle["dxi"], handle["dxq"]
         self._aa_np = handle["aa_np"]
 
@@ -435,17 +456,18 @@ class WidebandSniffer:
             while exhausted and self._cursors[m] - self._offset_ch < scan_limit:
                 before = self._cursors[m]
                 self.truncated_channels += 1
-                more = rescan_channel(
-                    dxi, dxq, m, handle["aa_rows"][m], self.aa_mask,
-                    self.whiten_rows[m], handle["crc_inits"][m],
-                    self.adv_flags[m], int(self._cursors[m] - self._offset_ch),
-                    sps=self._sps, lag=self._lag,
-                    max_candidates=self.cfg.max_candidates,
-                    num_taps=self.cfg.num_taps, has_context=True,
-                    cutoff_mhz=self.cfg.resolved_cutoff_mhz,
-                    device=self.device)
-                packed, layout = pack_candidates(more)
-                more = self._wait(*self._fetch(packed), layout)
+                with span("consume_scan.rescan"):
+                    more = rescan_channel(
+                        dxi, dxq, m, handle["aa_rows"][m], self.aa_mask,
+                        self.whiten_rows[m], handle["crc_inits"][m],
+                        self.adv_flags[m], int(self._cursors[m] - self._offset_ch),
+                        sps=self._sps, lag=self._lag,
+                        max_candidates=self.cfg.max_candidates,
+                        num_taps=self.cfg.num_taps, has_context=True,
+                        cutoff_mhz=self.cfg.resolved_cutoff_mhz,
+                        device=self.device)
+                    packed, layout = pack_candidates(more)
+                    more = self._wait(*self._fetch(packed), layout)
                 exhausted = self._consume_channel(m, more, scan_limit, packets)
                 if self._cursors[m] == before:
                     # remaining hits are all in the halo: the next block's

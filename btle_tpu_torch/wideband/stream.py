@@ -34,6 +34,7 @@ import numpy as np
 
 from ..ll.pdu import AdvHeader, extract_adv_a
 from ..rx.pipeline import rssi_dbm_from_mag
+from ..utils.profiling import span
 from .channelizer import D
 from .sniffer import WidebandPacket, WidebandSniffer
 
@@ -98,14 +99,15 @@ class WidebandStreamRunner:
 
     def consume(self, handle) -> list[WidebandPacket]:
         pkts = self.sn.consume_scan(handle)
-        for p in pkts:
-            self._emit_packet(p)
-        self._emit_follow_events()
-        self._emit_truncation()
-        self.stats.blocks += 1
-        self.stats.packets += len(pkts)
-        self.stats.crc_ok += sum(1 for p in pkts if p.crc_ok)
-        self.stats.samples_wb += self.sn.cfg.scan_len_ch * D
+        with span("consume.emit", block=handle.get("block", -1)):
+            for p in pkts:
+                self._emit_packet(p)
+            self._emit_follow_events()
+            self._emit_truncation()
+            self.stats.blocks += 1
+            self.stats.packets += len(pkts)
+            self.stats.crc_ok += sum(1 for p in pkts if p.crc_ok)
+            self.stats.samples_wb += self.sn.cfg.scan_len_ch * D
         return pkts
 
     # ------------------------------------------------------------------
@@ -224,7 +226,8 @@ class WidebandStreamRunner:
         t_start = time.perf_counter()
         while True:
             stop = should_stop() if should_stop is not None else False
-            blk = None if stop else ring.read_block(step, halo_wb)
+            with span("run_live.read", block=sn.blocks_dispatched):
+                blk = None if stop else ring.read_block(step, halo_wb)
             if blk is not None:
                 if control is not None:
                     writes = control.poll()
@@ -241,7 +244,8 @@ class WidebandStreamRunner:
             elif stop:
                 break
             else:
-                time.sleep(idle_sleep_s)
+                with span("run_live.read", block=sn.blocks_dispatched):
+                    time.sleep(idle_sleep_s)
         self.stats.wall_s = time.perf_counter() - t_start
         self.stats.dropped_pairs = ring.dropped
         return self.stats

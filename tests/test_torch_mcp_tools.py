@@ -37,6 +37,17 @@ def _capture(tmp_path, name, mfg_counter=0):
     return str(path)
 
 
+class _Ticks:
+    """A stand-in for the time module: time() steps 0.2 ms a call."""
+
+    def __init__(self):
+        self.t = 1715680000.0
+
+    def time(self):
+        self.t += 0.0002
+        return self.t
+
+
 @pytest.fixture(scope="module")
 def iq_file(tmp_path_factory):
     return _capture(tmp_path_factory.mktemp("mcp"), "cap.bin")
@@ -70,9 +81,16 @@ class TestToolBodies:
         assert out["mfg_id"] == 0xFFFF
         assert out["n_packets"] >= 2
 
-    def test_capture_to_pcap_and_profile_from_pcap(self, iq_file, tmp_path):
+    def test_capture_to_pcap_and_profile_from_pcap(self, iq_file, tmp_path, monkeypatch):
+        import btle_tpu.stream.pcap as jpcap
+        import btle_tpu_torch.stream.pcap as tpcap
+
         outs = []
-        for mod, tag, extra in ((J, "jax", {}), (T, "port", {"device": "cpu"})):
+        for mod, tag, extra, pcap_mod in ((J, "jax", {}, jpcap),
+                                          (T, "port", {"device": "cpu"}, tpcap)):
+            # both captures stamp their records from the same clock, so
+            # the profiles' intervals compare whole
+            monkeypatch.setattr(pcap_mod, "time", _Ticks())
             pcap = tmp_path / tag / "cap.pcap"
             out = mod.ble_capture_to_pcap(iq_file, str(pcap), fmt="i16", channel=37, **extra)
             out["pcap"] = out["pcap"].replace(tag, "")
@@ -80,7 +98,7 @@ class TestToolBodies:
         assert outs[1] == outs[0]
         out, prof, exists = outs[1]
         assert out["n_crc_ok"] >= 2 and exists
-        assert prof["name"] == "Lamp"
+        assert prof["name"] == "Lamp" and prof["avg_interval_ms"] > 0
 
     def test_diff_pcaps(self, iq_file, tmp_path):
         a = tmp_path / "a.pcap"
