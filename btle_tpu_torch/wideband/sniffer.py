@@ -140,9 +140,10 @@ def rescan_channel(i_wb, q_wb, slot, aa_row, aa_mask, whiten_row, crc_init,
                    has_context: bool = False, cutoff_mhz: float = 1.0,
                    device=None):
     """Continue the span-eating scan of ONE channel bin ``slot`` past
-    ``min_pos``. Used when a block has more AA hits in a channel than
-    candidate slots. Returns the candidate dict of that channel (no
-    channel axis), as the JAX function does."""
+    ``min_pos``, for a block with more AA hits in a channel than candidate
+    slots (the sharded scan's cells; WidebandSniffer batches the channels
+    of a block instead, ``_rescan``). Returns the candidate dict of that
+    channel (no channel axis), as the JAX function does."""
     dev = resolve_device(device)
     y_i, y_q = channelize(i_wb, q_wb, num_taps=num_taps,
                           has_context=has_context, cutoff_mhz=cutoff_mhz,
@@ -154,6 +155,12 @@ def rescan_channel(i_wb, q_wb, slot, aa_row, aa_mask, whiten_row, crc_init,
                        as_tensor(adv_flag, dev).reshape(1), sps=sps, lag=lag,
                        max_candidates=max_candidates, min_pos=int(min_pos))
     return {k: v[0] for k, v in out.items()}
+
+
+def _rows(t, rows):
+    """Rows ``rows`` of ``t`` as one tensor, stacked from row views (no
+    index upload)."""
+    return torch.stack([t[m] for m in rows])
 
 
 @dataclass
@@ -441,38 +448,26 @@ class WidebandSniffer:
             return self._walk(handle, out)
 
     def _walk(self, handle, out) -> list[WidebandPacket]:
-        """The walk of one block's candidates: span-eating, parsing,
-        following, and a rescan of each channel whose slots overflowed."""
-        dxi, dxq = handle["dxi"], handle["dxq"]
+        """The walk of one block's candidates: span-eating and parsing, a
+        rescan of the channels whose slots overflowed, then following."""
         self._aa_np = handle["aa_np"]
-
-        packets: list[WidebandPacket] = []
         scan_limit = self.cfg.scan_len_ch
+        found = [[] for _ in range(M)]     # each channel's packets, in order
+        over = []
         for m in range(M):
             row = {k: v[m] for k, v in out.items()}
-            exhausted = self._consume_channel(m, row, scan_limit, packets)
             # slot exhaustion: hits past the last slot were not decoded —
             # continue this channel's scan from the consumed cursor
-            while exhausted and self._cursors[m] - self._offset_ch < scan_limit:
-                before = self._cursors[m]
-                self.truncated_channels += 1
-                with span("consume_scan.rescan"):
-                    more = rescan_channel(
-                        dxi, dxq, m, handle["aa_rows"][m], self.aa_mask,
-                        self.whiten_rows[m], handle["crc_inits"][m],
-                        self.adv_flags[m], int(self._cursors[m] - self._offset_ch),
-                        sps=self._sps, lag=self._lag,
-                        max_candidates=self.cfg.max_candidates,
-                        num_taps=self.cfg.num_taps, has_context=True,
-                        cutoff_mhz=self.cfg.resolved_cutoff_mhz,
-                        device=self.device)
-                    packed, layout = pack_candidates(more)
-                    more = self._wait(*self._fetch(packed), layout)
-                exhausted = self._consume_channel(m, more, scan_limit, packets)
-                if self._cursors[m] == before:
-                    # remaining hits are all in the halo: the next block's
-                    # scan owns them
-                    break
+            if (self._consume_channel(m, row, scan_limit, found[m])
+                    and self._cursors[m] - self._offset_ch < scan_limit):
+                over.append(m)
+        if over:
+            self._rescan(handle, over, scan_limit, found)
+        packets = [p for pkts in found for p in pkts]
+        # the rescans read the handle's tables, so a re-key applies only
+        # to later blocks and following may trail the walk
+        for p in packets:
+            self._maybe_follow(p, p.channel in (37, 38, 39))
         self._offset_ch += scan_limit
         if self.hop_tracker is not None:
             self.hop_tracker.on_tick(self._offset_ch // CH_SPS)
@@ -482,6 +477,50 @@ class WidebandSniffer:
             if self.multi_follower.on_tick(self._offset_ch // CH_SPS):
                 self._apply_follow_tables()
         return packets
+
+    def _rescan(self, handle, over, scan_limit, found):
+        """Continue the scan of each channel bin in ``over`` past its
+        cursor, appending to ``found``. The block is channelized once (the
+        plain true-FP32 channelizer); each round decodes the rows of every
+        channel still pending in one call and fetches them in one copy. A
+        channel stays pending while its slots fill again and its cursor
+        moves inside the territory."""
+        y_i = y_q = None
+        while over:
+            self.truncated_channels += len(over)
+            count("rescan_channels", len(over))
+            before = [int(self._cursors[m]) for m in over]
+            starts = [c - self._offset_ch for c in before]
+            with span("consume_scan.rescan"):
+                if y_i is None:
+                    y_i, y_q = channelize(
+                        handle["dxi"], handle["dxq"], num_taps=self.cfg.num_taps,
+                        has_context=True, cutoff_mhz=self.cfg.resolved_cutoff_mhz,
+                        device=self.device)
+                # fill kernels take each value as an argument: no
+                # host-to-device copy (an item assignment makes one)
+                min_pos = torch.empty(len(over), dtype=torch.int32,
+                                      device=self.device)
+                for j, p in enumerate(starts):
+                    min_pos[j].fill_(p)
+                more = decode_block(
+                    _rows(y_i, over), _rows(y_q, over),
+                    _rows(handle["aa_rows"], over), self.aa_mask,
+                    _rows(self.whiten_rows, over), _rows(handle["crc_inits"], over),
+                    _rows(self.adv_flags, over), sps=self._sps, lag=self._lag,
+                    max_candidates=self.cfg.max_candidates, min_pos=min_pos)
+                packed, layout = pack_candidates(more)
+                more = self._wait(*self._fetch(packed), layout)
+            pending = []
+            for j, m in enumerate(over):
+                row = {k: v[j] for k, v in more.items()}
+                exhausted = self._consume_channel(m, row, scan_limit, found[m])
+                # a cursor that did not move: the remaining hits are all in
+                # the halo, which the next block's scan owns
+                if (exhausted and self._cursors[m] != before[j]
+                        and self._cursors[m] - self._offset_ch < scan_limit):
+                    pending.append(m)
+            over = pending
 
     def _channel_aa(self, m: int) -> int:
         """The access address currently keying channel bin m."""
@@ -493,9 +532,9 @@ class WidebandSniffer:
     def _consume_channel(self, m: int, row: dict, scan_limit: int,
                          packets: list[WidebandPacket]) -> bool:
         """Walk one channel's candidate slots in stream order, appending
-        packets and advancing the span-eating cursor. Returns True when
-        every slot was filled AND more hits exist past them (the caller
-        should rescan from the cursor)."""
+        parsed packets (not yet followed) and advancing the span-eating
+        cursor. Returns True when every slot was filled AND more hits exist
+        past them (the caller should rescan from the cursor)."""
         ch = bin_to_channel(m)
         adv = ch in (37, 38, 39)
         pos, valid = row["pos"], row["valid"]
@@ -517,7 +556,6 @@ class WidebandSniffer:
                 access_addr=self._channel_aa(m),
             )
             self._attach_parse(pkt, adv)
-            self._maybe_follow(pkt, adv)
             packets.append(pkt)
             self._cursors[m] = abs_p + (32 + 16 + (pl + 3) * 8) * self._sps
         return int(row["num_hits"]) > len(pos)

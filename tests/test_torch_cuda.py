@@ -444,6 +444,47 @@ def test_sniffer_on_card_matches_cpu_path(dev):
         assert got.truncated_channels == ref.truncated_channels >= 1
 
 
+def test_batched_rescans_on_card(dev):
+    """37, 38 and 39 overflowing two slots in one block: one decode_block
+    over their rows with a (C,) min_pos (the walk's batched rescan) equals
+    one call a row on the card, key by key, and the sniffer's rescan rounds
+    give the CPU path's packets."""
+    from btle_tpu_torch.rx.pipeline import decode_block
+    from btle_tpu_torch.utils import profiling as P
+    from btle_tpu_torch.wideband import channelize
+
+    wi, wq = _scene(5, chans=(37, 38, 39) * 4, n=2 * 163_840, spacing=12_000)
+    cfg = dict(scan_len_ch=8192, max_candidates=2, fused=True, fused_dtype="bf16x2w")
+    ref = WidebandSniffer(WidebandConfig(**cfg), device="cpu")
+    got = WidebandSniffer(WidebandConfig(**cfg), device=dev)
+    tr = P.Tracer(4096)
+    a = ref.run(wi, wq)
+    with P.tracing(tr):
+        b = got.run(wi, wq)
+    key = [(p.channel, p.sample_pos, p.crc_ok, p.pdu_bytes.tobytes()) for p in a]
+    assert key == [(p.channel, p.sample_pos, p.crc_ok, p.pdu_bytes.tobytes()) for p in b]
+    assert sum(p.crc_ok for p in b) == 12
+    assert got.truncated_channels == ref.truncated_channels == tr.counters["rescan_channels"]
+    assert [c.n for c in tr.counts() if c.name == "rescan_channels"][0] == 3
+
+    n = got.wb_block_len + got._ctx_len
+    x = [np.concatenate([np.zeros(got._ctx_len, np.float32), v])[:n] for v in (wi, wq)]
+    y_i, y_q = channelize(*x, has_context=True, device=dev)
+    aa, mask, whiten, crc, adv = default_scan_tables(dev)
+    rows, starts = [19, 20, 32], [0, 2000, 1500]
+    idx = torch.tensor(rows, device=dev)
+    kw = dict(sps=4, lag=4, max_candidates=2)
+    many = decode_block(y_i[idx], y_q[idx], aa.expand(3, 32), mask, whiten[idx],
+                        crc[idx], adv[idx],
+                        min_pos=torch.tensor(starts, dtype=torch.int32, device=dev), **kw)
+    for j, (m, p) in enumerate(zip(rows, starts)):
+        one = decode_block(y_i[m: m + 1], y_q[m: m + 1], aa[None], mask,
+                           whiten[m: m + 1], crc[m: m + 1], adv[m: m + 1], min_pos=p, **kw)
+        for k in one:
+            assert torch.equal(many[k][j], one[k][0]), (m, k)
+    assert int(many["num_hits"][0]) > 2
+
+
 def _follow_scene():
     """Two CONNECT_REQs (37, 38) in block 0, then a data packet of each
     connection on its first hop channel (9, 7) in block 2."""

@@ -153,17 +153,20 @@ def _burst(rng, ch, n_payload=6):
 
 @pytest.fixture(scope="module")
 def dense_scene():
-    """Eight advertising bursts on channel 37 in 3 blocks: more AA hits a
-    block than two candidate slots, so the walk rescans."""
+    """Eight advertising bursts on each of channels 37, 38 and 39 in 3
+    blocks: more AA hits a block than two candidate slots on all three, so
+    the walk rescans them together."""
     rng = np.random.default_rng(5)
     gap = np.zeros(2500, np.float32)
-    parts_i, parts_q = [], []
-    for _ in range(8):
-        bi, bq = _burst(rng, 37)
-        parts_i += [bi, gap]
-        parts_q += [bq, gap]
-    sig_i, sig_q = np.concatenate(parts_i), np.concatenate(parts_q)
-    return synthesize_wideband({37: (sig_i, sig_q)}, 3 * SCAN_LEN * 20, {37: 2000})
+    signals = {}
+    for ch in (37, 38, 39):
+        parts_i, parts_q = [], []
+        for _ in range(8):
+            bi, bq = _burst(rng, ch)
+            parts_i += [bi, gap]
+            parts_q += [bq, gap]
+        signals[ch] = (np.concatenate(parts_i), np.concatenate(parts_q))
+    return synthesize_wideband(signals, 3 * SCAN_LEN * 20, {37: 2000, 38: 2400, 39: 2800})
 
 
 def _wideband_runner():
@@ -188,7 +191,7 @@ def test_wideband_spans_and_rescans(dense_scene):
                  "consume_scan.wait", "consume.emit"):
         assert spans[name]["count"] == n, name
     assert sn.truncated_channels > 0
-    assert spans["consume_scan.rescan"]["count"] == sn.truncated_channels
+    assert tot["counters"]["rescan_channels"] == sn.truncated_channels
     assert runner.stats.truncate_rescans == sn.truncated_channels
     # each block's spans carry its dispatch number; children nest in parents
     recs = tr.spans()
@@ -200,9 +203,19 @@ def test_wideband_spans_and_rescans(dense_scene):
             assert by_id[r.parent].name == "consume_scan"
     assert sorted(r.block for r in recs if r.name == "consume_scan") == list(range(n))
     assert sorted(r.block for r in recs if r.name == "consume.emit") == list(range(n))
-    # uploads: the two IQ arrays a block; a rescan's plain channelizer adds
-    # its four tables
-    assert tot["counters"]["h2d_copies"] == 2 * n + 4 * sn.truncated_channels
+    # a rescan span is one device round trip: a block's first round serves
+    # every channel that overflowed, a fallback round those whose slots
+    # filled again; each round counts the channels it serves
+    rounds = [c for c in tr.counts() if c.name == "rescan_channels"]
+    rescanned = {c.block for c in rounds}
+    fallbacks = len(rounds) - len(rescanned)
+    assert [c.n for c in rounds if c.block == min(rescanned)][0] == 3
+    assert spans["consume_scan.rescan"]["count"] == len(rescanned) + fallbacks
+    assert spans["consume_scan.rescan"]["count"] < sn.truncated_channels
+    assert {r.block for r in recs if r.name == "consume_scan.rescan"} == rescanned
+    # uploads: the two IQ arrays a block; a block's rescans add the plain
+    # channelizer's four tables once
+    assert tot["counters"]["h2d_copies"] == 2 * n + 4 * len(rescanned)
     assert spans["consume_scan"]["self_ns"] < spans["consume_scan"]["total_ns"]
 
 

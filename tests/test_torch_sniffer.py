@@ -137,6 +137,103 @@ def test_midstream_handover_from_jax():
     assert port.truncated_channels >= 1
 
 
+# short advertising bursts on 37, 38 and 39 (wideband offsets): at two
+# slots a channel all three overflow in block 0, 37 and 38 past one rescan;
+# 39's last three bursts lie in block 0's halo, so its last rescan finds
+# only hits that block 1 owns and stops there
+OVERFLOW_TRAINS = {37: range(30_000, 100_000, 14_000),
+                   38: range(60_000, 115_000, 14_000),
+                   39: [*range(20_000, 110_000, 15_000), 164_240, 175_040, 185_840]}
+
+
+@pytest.fixture(scope="module")
+def overflow_scene():
+    """test_wideband_stream's follow scene (ADV on 37 and 38, a CONNECT_REQ
+    on 37, a data packet on the connection's channel 9 in block 1) with
+    OVERFLOW_TRAINS added: 37's CONNECT_REQ is found by a later rescan."""
+    from test_wideband_stream import _scene
+
+    rng = np.random.default_rng(7)
+    n = 2 * STEP
+    wi, wq = _scene(rng, n)
+    for ch, offsets in OVERFLOW_TRAINS.items():
+        for off in offsets:
+            bi, bq = synthesize_wideband({ch: _burst(rng, ch, 6)}, n, {ch: off})
+            wi += bi
+            wq += bq
+    return wi, wq
+
+
+@pytest.mark.parametrize("follow,fused", [
+    (dict(), False),
+    (dict(follow_connections=True), False),
+    (dict(follow_connections=True, max_follow=2), False),
+    (dict(follow_connections=True), True)],
+    ids=["plain", "plain-follow", "plain-multifollow", "f32-follow"])
+def test_overflow_rescans_match_jax(overflow_scene, follow, fused):
+    """Channels 37, 38 and 39 overflowing in one block: the rescans of a
+    block batched into rounds give the JAX sniffer's packets, in its order
+    (with the access address and, on the plain path, the RSSI statistic),
+    its rescan count and its cursors, with and without following."""
+    from btle_tpu_torch.utils import profiling as P
+
+    wi, wq = overflow_scene
+    cfg = dict(scan_len_ch=8192, max_candidates=2, **follow)
+    jsn = JSniffer(JConfig(**cfg))
+    ref = jsn.run(wi, wq)
+    port = WidebandSniffer(WidebandConfig(fused=fused, fused_dtype="f32", **cfg),
+                           device="cpu")
+    tr = P.Tracer(4096)
+    with P.tracing(tr):
+        got = port.run(wi, wq)
+    assert _tuples(got) == _tuples(ref)
+    assert [p.access_addr for p in got] == [p.access_addr for p in ref]
+    if not fused:
+        assert [p.rssi_mag for p in got] == [p.rssi_mag for p in ref]
+    assert port.truncated_channels == jsn.truncated_channels
+    assert np.array_equal(port._cursors, np.asarray(jsn._cursors))
+    assert port._offset_ch == jsn._offset_ch
+    # block 0's first round serves all three channels; later rounds follow
+    rounds = [c.n for c in tr.counts() if c.name == "rescan_channels" and c.block == 0]
+    assert rounds[0] == 3 and len(rounds) >= 3 and rounds == sorted(rounds, reverse=True)
+    assert tr.counters["rescan_channels"] == port.truncated_channels
+    assert (tr.totals()["spans"]["consume_scan.rescan"]["count"]
+            == len([c for c in tr.counts() if c.name == "rescan_channels"]))
+    data = [p for p in got if p.channel == 9 and p.crc_ok]
+    assert len(data) == (1 if follow else 0)
+    assert sum(p.crc_ok for p in got if p.channel in (37, 38, 39)) >= 10
+
+
+def test_decode_block_rows_with_min_pos_vector(overflow_scene):
+    """One decode_block over several channel rows with a (C,) min_pos
+    equals one call a row with its scalar min_pos, key by key."""
+    from btle_tpu_torch.rx.pipeline import decode_block
+    from btle_tpu_torch.wideband import channelize
+    from btle_tpu_torch.wideband.sniffer import default_scan_tables
+
+    wi, wq = overflow_scene
+    sn = WidebandSniffer(WidebandConfig(scan_len_ch=8192), device="cpu")
+    n = sn.wb_block_len + sn._ctx_len
+    y_i, y_q = channelize(np.concatenate([np.zeros(sn._ctx_len, np.float32), wi])[:n],
+                          np.concatenate([np.zeros(sn._ctx_len, np.float32), wq])[:n],
+                          has_context=True, device="cpu")
+    aa, mask, whiten, crc, adv = default_scan_tables("cpu")
+    rows, starts = [19, 20, 32, 9], [0, 1700, 1000, 0]
+    kw = dict(sps=4, lag=4, max_candidates=2)
+    idx = torch.tensor(rows)
+    many = decode_block(y_i[idx], y_q[idx], aa.expand(len(rows), 32), mask,
+                        whiten[idx], crc[idx], adv[idx],
+                        min_pos=torch.tensor(starts, dtype=torch.int32), **kw)
+    assert int(many["num_hits"][0]) > 2 and int(many["num_hits"][1]) > 2
+    for j, (m, p) in enumerate(zip(rows, starts)):
+        one = decode_block(y_i[m: m + 1], y_q[m: m + 1], aa[None], mask,
+                           whiten[m: m + 1], crc[m: m + 1], adv[m: m + 1],
+                           min_pos=p, **kw)
+        assert set(one) == set(many)
+        for k in one:
+            assert torch.equal(many[k][j], one[k][0]), (m, k)
+
+
 def test_integer_wire_format_blocks():
     """int16 wire samples go to the device as integers (the cast to float
     runs there) and decode as the JAX sniffer decodes the same blocks."""
