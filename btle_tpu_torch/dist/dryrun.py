@@ -18,6 +18,8 @@ import traceback
 
 import numpy as np
 
+from .multihost import GROUP_TIMEOUT
+
 
 def free_port() -> int:
     """A free TCP port on localhost for the group's rendezvous."""
@@ -36,7 +38,7 @@ def _rank_main(rank, world, port, backend, device_type, fn, args, queue):
         if device_type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
         dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                                world_size=world, rank=rank)
+                                world_size=world, rank=rank, timeout=GROUP_TIMEOUT)
         try:
             queue.put((rank, True, fn(*args)))
         finally:
@@ -52,7 +54,9 @@ def spawn(world_size: int, fn, *args, backend: str, device_type: str,
     """fn(*args) on ``world_size`` spawned ranks of one group over
     ``backend`` ("nccl" or "gloo"), each rank on ``device_type`` ("cuda"
     or "cpu"); returns the results by rank. A rank that raises (or a group that outlives
-    ``timeout`` seconds) raises here after every process is stopped."""
+    ``timeout`` seconds) raises here after every process is stopped, naming
+    first every rank that exited without a result and its exit code (the
+    others' errors are then often only that they lost it)."""
     import queue as queue_mod
 
     import torch.multiprocessing as mp
@@ -66,33 +70,58 @@ def spawn(world_size: int, fn, *args, backend: str, device_type: str,
              for r in range(world_size)]
     for p in procs:
         p.start()
-    out, errors, reported = [None] * world_size, [], set()
+    out, errors, reported, stopped = [None] * world_size, [], set(), set()
     deadline = time.monotonic() + timeout
+
+    def dead() -> list:
+        """Ranks that exited non-zero without a result (not those stopped
+        here)."""
+        return [r for r, p in enumerate(procs) if r not in reported | stopped
+                and p.exitcode not in (None, 0)]
+
+    def take(rank, ok, value):
+        reported.add(rank)
+        if ok:
+            out[rank] = value
+        else:
+            errors.append(f"rank {rank}:\n{value}")
+
     try:
         while len(reported) < world_size and not errors:
             try:
-                rank, ok, value = results.get(timeout=1.0)
+                take(*results.get(timeout=1.0))
             except queue_mod.Empty:
                 # a rank that died before it could report (e.g. in start-up)
-                dead = [r for r, p in enumerate(procs)
-                        if r not in reported and p.exitcode not in (None, 0)]
-                if dead:
-                    errors.append(f"ranks {dead} exited {[procs[r].exitcode for r in dead]} "
-                                  "without a result")
-                elif time.monotonic() > deadline:
+                if dead():
+                    break
+                if time.monotonic() > deadline:
                     errors.append(f"the group did not finish within {timeout} s")
-                continue
-            reported.add(rank)
-            if ok:
-                out[rank] = value
-            else:
-                errors.append(f"rank {rank}:\n{value}")
     finally:
-        for p in procs:
-            p.join(timeout=5 if errors else 60)
+        # read what the others still report while they end (a process
+        # that wrote to the queue may not exit before it is read)
+        end = time.monotonic() + (5 if errors or dead() else 60)
+        while any(p.is_alive() for p in procs) and time.monotonic() < end:
+            try:
+                take(*results.get(timeout=0.1))
+            except queue_mod.Empty:
+                pass
+        for r, p in enumerate(procs):
             if p.is_alive():
+                stopped.add(r)
                 p.terminate()
-                p.join()
+            p.join()
+        while True:
+            try:
+                take(*results.get(timeout=0.1))
+            except queue_mod.Empty:
+                break
+    # a rank that dies takes the group's rendezvous or connections with
+    # it, so a peer may report that loss before the dead rank's exit is
+    # seen: the dead are named first, once every process has ended
+    gone = dead()
+    if gone:
+        errors.insert(0, f"ranks {gone} exited {[procs[r].exitcode for r in gone]} "
+                      "without a result")
     if errors:
         raise RuntimeError("spawned ranks failed: " + "\n".join(errors))
     return out

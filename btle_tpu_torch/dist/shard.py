@@ -27,10 +27,41 @@ the same steps on its own shard:
   K3 at "f32", then K2 and K4 on a card), on its shard.
 
 A step's per-rank candidate arrays are packed into one int32 vector and
-gathered over "ch" and then over "time", so ``__call__`` returns the
-global arrays, shaped (n_time, M, max_candidates, ...), on every rank;
+gathered over "ch" and then over "time", so a step returns the global
+arrays, shaped (n_time, M, max_candidates, ...), on every rank;
 ``gather_packets`` runs the same host walk on every rank (span-eating
-cursors, the slot-overflow rescan, connection following).
+cursors, the slot-overflow rescan, connection following), so every rank
+hands on the same packets in the same order.
+
+Two ways in:
+
+* ``__call__`` takes a whole capture (every rank the same n_time blocks),
+  the JAX program's semantics: the stream's ends are zero, positions are
+  relative to the capture, cursors start afresh each call.
+* ``run_placed`` is one step of the per-process stream, each rank fed
+  only its own block (``multihost.MultiHostWidebandScan``): step k of
+  rank (c, t) holds stream samples [(k * n_time + t) * block_wb, ...).
+  It decodes as one unsharded stream at block_wb-sample blocks: the
+  first time shard's context is the previous step's last num_taps-1
+  samples (a wrap-around send from the last time shard), the last time
+  shard's head is the lookahead its own ingest read (as ``run_live``'s
+  ring read takes territory plus halo), cursors carry from step to step
+  and ``sample_pos`` is the stream-absolute per-channel index.
+
+A (time, channel) cell whose AA hits outnumber its slots is rescanned,
+never dropped: the walk asks for every rescan it needs, the rank that
+holds the cell's time block (and channel group) channelizes its shard
+window once a step with the plain channelizer and decodes all of a
+round's cells in one call, and one gather a round gives every rank the
+results (``WidebandSniffer._rescan``'s rounds, over the mesh).
+
+Spans and counters (``utils.profiling``; idle unless a tracer is on),
+each span carrying its step: ``shard.ingest`` (multihost), ``shard.
+exchange``, ``shard.scan``, ``shard.gather``, ``shard.walk`` (whose self
+time is the walk) and, inside it, ``shard.rescan`` a round; the counters
+``rescan_cells`` (equal to ``truncated_cells``), ``halo_bytes`` (sent in
+the exchange), ``gather_bytes`` (received by the gathers) and
+``h2d_copies``.
 """
 
 from __future__ import annotations
@@ -39,13 +70,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..rx.pipeline import decode_block, pack_candidates, required_halo
+from ..rx.pipeline import (PACK_KEYS, decode_block, pack_candidates,
+                           required_halo, unpack_candidates)
 from ..spec import bits as B
 from ..spec import crc24 as C
 from ..spec import whitening as W
+from ..utils.profiling import count, span
 from ..wideband.channelizer import (DEFAULT_TAPS, D, M, _dft_matrix,
                                     _poly_kernel, bin_to_channel,
-                                    branch_columns, true_fp32)
+                                    branch_columns, channelize, true_fp32)
+from ..wideband.sniffer import (WidebandPacket, _rows, ch_sps_for_phy,
+                                cutoff_for_phy, try_track_connection)
 
 
 def _branch_split_plan(num_taps: int, cutoff_mhz: float = 1.0):
@@ -98,10 +133,6 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _host(v) -> np.ndarray:
-    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-
-
 class ShardedWidebandScan:
     """Multi-device wideband scan; every rank of ``mesh`` constructs it and
     calls it with the same arguments.
@@ -121,8 +152,6 @@ class ShardedWidebandScan:
         # LE PHY ("1m" | "2m"): BLE 5 keeps the 2 MHz channel grid, so
         # 2M only changes the per-channel samples/symbol (2). Time
         # bookkeeping stays CH_SPS (channel samples per us at 4 Msps).
-        from ..wideband.sniffer import ch_sps_for_phy, cutoff_for_phy
-
         self.phy = phy
         self._sps = ch_sps_for_phy(phy)
         self._lag = self._sps
@@ -180,15 +209,20 @@ class ShardedWidebandScan:
         self.connection = None
         self._stream_offset_ch = 0  # per-channel samples consumed so far
         # (time, channel) cells whose AA hits exceeded the candidate
-        # slots; gather_packets RECOVERS them by rescanning the retained
-        # wideband input from the consumed cursor (single-device sniffer
+        # slots; gather_packets RECOVERS them by rescanning the cell's
+        # shard window from the consumed cursor (single-device sniffer
         # semantics) — the counter records rescans performed, and
         # on_truncate (if set) is called per overflow event
         self.truncated_cells = 0
         self.on_truncate = None      # callable(t, m, num_hits) | None
-        ctx = num_taps - 1
-        self._ctx_tail = (torch.zeros(ctx, device=dev), torch.zeros(ctx, device=dev))
-        self._rescan_src = None
+        self.steps = 0               # steps run: the spans' step number
+        self._stream = False         # the last step came through run_placed
+        self._cursors = np.zeros(M, dtype=np.int64)  # the stream's, across steps
+        self._wrap_ctx = None        # time shard 0's context for the next step
+        self._last = None            # (the step's output, its host copy)
+        self._window = None          # this rank's shard window (ctx + block + head)
+        self._plain = None           # its plain channelization, once a step
+        self._row_layout = None      # one (time, channel) cell of packed candidates
 
     def _set_tables(self, aa_rows, crc_inits):
         """The AA rows and CRC inits the next steps decode with: host
@@ -200,32 +234,60 @@ class ShardedWidebandScan:
 
     # ------------------------------------------------------------------
     def _neighbour(self, dt: int) -> int:
-        """Global rank of the time neighbour ``dt`` away on this ch row."""
+        """Global rank of the time shard ``dt`` away on this ch row."""
         return int(self.mesh.mesh[self.c_idx, self.t_idx + dt])
 
-    def _exchange(self, xi, xq):
+    def _exchange(self, xi, xq, head=None, stream: bool = False):
         """The halo exchange along "time": (ctx_i, ctx_q, head_i, head_q),
         the left neighbour's last num_taps-1 samples and the right
         neighbour's first halo_wb samples (as much of them as a shard
-        holds), zero at the stream's ends."""
+        holds). At the stream's ends they are zero, except on the
+        per-process stream (``stream``): there time shard 0's context is
+        the previous step's last samples, which the last time shard sent
+        it one step earlier, and the last time shard's head is ``head``
+        (the lookahead its ingest read; zeros past what it holds)."""
         ctx, halo = min(self.num_taps - 1, xi.shape[0]), min(self.halo_wb, xi.shape[0])
         ctx_i, ctx_q = (torch.zeros(ctx, device=xi.device) for _ in range(2))
         head_i, head_q = (torch.zeros(halo, device=xi.device) for _ in range(2))
+        first, last = self.t_idx == 0, self.t_idx == self.n_time - 1
+        if stream and last and head is not None:
+            for dst, src in zip((head_i, head_q), head):
+                n = min(halo, src.shape[0])
+                dst[:n] = src[:n]
+        if stream and first and self._wrap_ctx is not None:
+            ctx_i, ctx_q = self._wrap_ctx
         group = self.mesh.get_group("time")
         ops = []
-        if self.t_idx > 0:
+        if not first:
             left = self._neighbour(-1)
             ops += [dist.P2POp(dist.isend, xi[:halo].contiguous(), left, group),
                     dist.P2POp(dist.isend, xq[:halo].contiguous(), left, group),
                     dist.P2POp(dist.irecv, ctx_i, left, group),
                     dist.P2POp(dist.irecv, ctx_q, left, group)]
-        if self.t_idx < self.n_time - 1:
+        if not last:
             right = self._neighbour(1)
             ops += [dist.P2POp(dist.irecv, head_i, right, group),
                     dist.P2POp(dist.irecv, head_q, right, group),
                     dist.P2POp(dist.isend, xi[-ctx:].contiguous(), right, group),
                     dist.P2POp(dist.isend, xq[-ctx:].contiguous(), right, group)]
+        if stream:
+            # the last time shard's tail is time shard 0's next context
+            # (posted after the neighbours' pair, in the same order on
+            # both sides, so two shards that are both neighbours and wrap
+            # partners match their messages)
+            if self.n_time == 1:
+                self._wrap_ctx = (xi[-ctx:].clone(), xq[-ctx:].clone())
+            elif last:
+                wrap = self._neighbour(-self.t_idx)
+                ops += [dist.P2POp(dist.isend, xi[-ctx:].contiguous(), wrap, group),
+                        dist.P2POp(dist.isend, xq[-ctx:].contiguous(), wrap, group)]
+            elif first:
+                self._wrap_ctx = tuple(torch.empty(ctx, device=xi.device) for _ in range(2))
+                wrap = self._neighbour(self.n_time - 1)
+                ops += [dist.P2POp(dist.irecv, v, wrap, group) for v in self._wrap_ctx]
         if ops:
+            count("halo_bytes", sum(op.tensor.numel() * op.tensor.element_size()
+                                    for op in ops if op.op is dist.isend))
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return ctx_i, ctx_q, head_i, head_q
@@ -259,50 +321,85 @@ class ShardedWidebandScan:
                             self.adv_flags[grp], sps=self._sps, lag=self._lag,
                             max_candidates=self.max_candidates)
 
-    def _gather(self, out: dict) -> dict:
-        """Every rank's (chunk, ...) candidate arrays -> the global
-        (n_time, M, ...) arrays on every rank: one packed int32 vector
-        gathered over "ch", then over "time"."""
-        packed, layout = pack_candidates(out)
+    def _mesh_gather(self, x):
+        """Every rank's ``x`` -> (n_time, n_ch, *x.shape) on every rank:
+        all_gather over "ch", then over "time" (a size-1 axis costs no
+        collective)."""
         for dim in ("ch", "time"):
             group = self.mesh.get_group(dim)
-            parts = [torch.empty_like(packed)
-                     for _ in range(dist.get_world_size(group))]
-            dist.all_gather(parts, packed, group=group)
-            packed = torch.stack(parts)
-        # packed: (n_time, n_ch, L)
+            n = dist.get_world_size(group)
+            if n == 1:
+                x = x[None]
+                continue
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=group)
+            count("gather_bytes", n * x.numel() * x.element_size())
+            x = torch.stack(parts)
+        return x
+
+    def _split(self, packed, layout: dict, host: bool) -> dict:
+        """The global (n_time, n_ch * chunk, ...) arrays of gathered
+        packed vectors (n_time, n_ch, L): device tensors, or numpy arrays
+        of the host copy."""
         full, off = {}, 0
         for k, (shape, dtype) in layout.items():
             n = int(np.prod(shape))
             seg = packed[..., off: off + n].reshape(self.n_time, self.n_ch, *shape)
             if dtype == np.float32:
-                seg = seg.view(torch.float32)
+                seg = seg.view(np.float32) if host else seg.view(torch.float32)
             elif dtype == np.bool_:
-                seg = seg.to(torch.bool)
+                seg = seg.astype(bool) if host else seg.to(torch.bool)
             full[k] = seg.reshape(self.n_time, self.n_ch * shape[0], *shape[1:])
             off += n
         return full
 
-    def run_placed(self, xi, xq) -> dict:
-        """Run one step on this rank's time shard (block_wb float32
-        samples on its device): the halo exchange, the scan, the gather —
-        the benchmarking / per-host-ingest entry point."""
-        ctx_i, ctx_q, head_i, head_q = self._exchange(xi, xq)
-        xi_h = torch.cat([ctx_i, xi, head_i])
-        xq_h = torch.cat([ctx_q, xq, head_q])
-        if self.fused:
-            from ..wideband.fused import wideband_scan_fused
+    def _gather(self, out: dict) -> dict:
+        """Every rank's (chunk, ...) candidate arrays -> the global
+        (n_time, M, ...) arrays on every rank: one packed int32 vector
+        gathered over "ch", then over "time", and one host copy of it
+        (so this waits for the slowest rank), which the walk reads."""
+        packed, layout = pack_candidates(out)
+        packed = self._mesh_gather(packed)                  # (n_time, n_ch, L)
+        self._row_layout = {k: (shape[1:], dtype) for k, (shape, dtype) in layout.items()}
+        full = self._split(packed, layout, host=False)
+        self._last = (full, self._split(packed.cpu().numpy(), layout, host=True))
+        return full
 
-            out = wideband_scan_fused(
-                xi_h, xq_h, self.aa_rows, self.aa_mask, self.whiten_rows,
-                self.crc_inits, self.adv_flags, sps=self._sps, lag=self._lag,
-                max_candidates=self.max_candidates, num_taps=self.num_taps,
-                has_context=True, tile=self.fused_tile,
-                compute_dtype=self.fused_dtype, cutoff_mhz=self.cutoff_mhz,
-                device=self.device)
-        else:
-            out = self._branch_split(xi_h, xq_h)
-        return self._gather(out)
+    def _step(self, xi, xq, head, stream: bool) -> dict:
+        """One step on this rank's time block: the exchange, the scan,
+        the gather."""
+        k = self.steps
+        self.steps += 1
+        self._stream = stream
+        with span("shard.exchange", block=k):
+            ctx_i, ctx_q, head_i, head_q = self._exchange(xi, xq, head, stream)
+        with span("shard.scan", block=k):
+            xi_h = torch.cat([ctx_i, xi, head_i])
+            xq_h = torch.cat([ctx_q, xq, head_q])
+            # kept for the rescans of this rank's cells
+            self._window, self._plain = (xi_h, xq_h), None
+            if self.fused:
+                from ..wideband.fused import wideband_scan_fused
+
+                out = wideband_scan_fused(
+                    xi_h, xq_h, self.aa_rows, self.aa_mask, self.whiten_rows,
+                    self.crc_inits, self.adv_flags, sps=self._sps, lag=self._lag,
+                    max_candidates=self.max_candidates, num_taps=self.num_taps,
+                    has_context=True, tile=self.fused_tile,
+                    compute_dtype=self.fused_dtype, cutoff_mhz=self.cutoff_mhz,
+                    device=self.device)
+            else:
+                out = self._branch_split(xi_h, xq_h)
+        with span("shard.gather", block=k):
+            return self._gather(out)
+
+    def run_placed(self, xi, xq, head=None) -> dict:
+        """One step of the per-process stream on this rank's time block
+        (block_wb float32 samples on its device; on the last time shard
+        ``head`` may hold the (i, q) lookahead that follows the block,
+        up to halo_wb samples): the exchange, the scan, the gather.
+        Successive calls are successive steps of one stream."""
+        return self._step(xi, xq, head, stream=True)
 
     def __call__(self, i_wb, q_wb) -> dict:
         n = self.n_time * self.block_wb
@@ -311,15 +408,8 @@ class ShardedWidebandScan:
         dev = self.device
         x = [torch.as_tensor(np.asarray(v, np.float32), device=dev)
              for v in (i_wb, q_wb)]
-        # retain the super-block (plus the tail of the previous one as
-        # left filter context) so gather_packets can rescan a channel
-        # whose AA hits exceeded the candidate slots — the sharded analog
-        # of the single-device sniffer's slot-exhaustion rescan
-        ctx = self.num_taps - 1
-        self._rescan_src = tuple(torch.cat([p, v]) for p, v in zip(self._ctx_tail, x))
-        self._ctx_tail = tuple(v[-ctx:] for v in x)
         own = slice(self.t_idx * self.block_wb, (self.t_idx + 1) * self.block_wb)
-        return self.run_placed(x[0][own], x[1][own])
+        return self._step(x[0][own], x[1][own], None, stream=False)
 
     # ------------------------------------------------------------------
     def enable_connection_following(self, max_follow: int = 1,
@@ -346,12 +436,12 @@ class ShardedWidebandScan:
     def _maybe_follow(self, pkt):
         """CONNECT_REQ -> re-key all data channels (wideband hears every
         data channel; the hop tracker only books the expected pattern)."""
-        from ..wideband.sniffer import try_track_connection
-
         if not self.follow_connections:
             return
-        # stream-absolute sample clock across successive __call__s
-        now_us = (self._stream_offset_ch + pkt.sample_pos) // CH_SPS
+        # stream-absolute sample clock across successive steps (the
+        # per-process stream's positions already are)
+        now_us = ((0 if self._stream else self._stream_offset_ch)
+                  + pkt.sample_pos) // CH_SPS
         if self.multi_follower is not None:
             adv = pkt.channel in (37, 38, 39)
             if not adv and pkt.crc_ok and pkt.payload is None:
@@ -374,117 +464,163 @@ class ShardedWidebandScan:
             self.connection = res[0]
             self._set_tables(res[1], res[2])
 
-    def _rescan_cell(self, t: int, m: int, min_pos: int) -> dict:
-        """Continue channel m's scan of time block t past ``min_pos``
-        (per-channel samples relative to the block): one single-channel
-        rescan (the plain channelizer, then K7 and K4 on a card) over the
-        retained super-block slice, with the previous block's tail as
-        left filter context — wideband.sniffer.rescan_channel's
-        slot-exhaustion path."""
-        from ..wideband.sniffer import rescan_channel
+    def _rescan_round(self, need: list) -> dict:
+        """One round of rescans: ``need`` [(t, m, min_pos)], the same on
+        every rank. The rank that holds cell (t, m) continues channel m's
+        scan of its block past min_pos (per-channel samples relative to
+        the block): its shard window's plain channelization (once a
+        step), then one ``decode_block`` over the rows of all its cells
+        (K7 and K4 on a card). One gather gives every rank every result:
+        {(t, m, min_pos): the cell's candidate row (host arrays)}."""
+        chunk = M // self.n_ch
+        owned: dict = {}
+        for key in need:
+            owned.setdefault((key[1] // chunk, key[0]), []).append(key)
+        width = max(len(v) for v in owned.values())
+        row_len = sum(int(np.prod(s)) for s, _ in self._row_layout.values())
+        rows = torch.zeros((width, row_len), dtype=torch.int32, device=self.device)
+        mine = owned.get((self.c_idx, self.t_idx), [])
+        if mine:
+            if self._plain is None:
+                self._plain = channelize(*self._window, num_taps=self.num_taps,
+                                         has_context=True, cutoff_mhz=self.cutoff_mhz,
+                                         device=self.device)
+            y_i, y_q = self._plain
+            ms = [m for _, m, _ in mine]
+            # fill kernels take each value as an argument: no
+            # host-to-device copy (an item assignment makes one)
+            min_pos = torch.empty(len(mine), dtype=torch.int32, device=self.device)
+            for j, (_, _, p) in enumerate(mine):
+                min_pos[j].fill_(p)
+            more = decode_block(
+                _rows(y_i, ms), _rows(y_q, ms), _rows(self._gather_aa, ms),
+                self.aa_mask, _rows(self.whiten_rows, ms), _rows(self._gather_crc, ms),
+                _rows(self.adv_flags, ms), sps=self._sps, lag=self._lag,
+                max_candidates=self.max_candidates, min_pos=min_pos)
+            rows[: len(mine)] = torch.cat(
+                [(more[k].view(torch.int32) if more[k].dtype == torch.float32
+                  else more[k].to(torch.int32)).reshape(len(mine), -1)
+                 for k in PACK_KEYS], dim=1)
+        host = self._mesh_gather(rows).cpu().numpy()       # (n_time, n_ch, width, L)
+        return {key: unpack_candidates(host[t, c, j], self._row_layout)
+                for (c, t), keys in owned.items() for j, key in enumerate(keys)}
 
-        ci, cq = self._rescan_src            # ctx + super-block samples
-        ctx = self.num_taps - 1
-        start = t * self.block_wb            # ctx-shifted == block - ctx
-        need = ctx + self.block_wb + self.halo_wb
-        si, sq = (torch.nn.functional.pad(v[start: start + need],
-                                          (0, max(0, need - (v.shape[0] - start))))
-                  for v in (ci, cq))
-        out = rescan_channel(
-            si, sq, m, self._gather_aa[m], self.aa_mask, self.whiten_rows[m],
-            self._gather_crc[m], self.adv_flags[m], min_pos, sps=self._sps,
-            lag=self._lag, max_candidates=self.max_candidates,
-            num_taps=self.num_taps, has_context=True, cutoff_mhz=self.cutoff_mhz,
-            device=self.device)
-        return {k: _host(v) for k, v in out.items()}
+    def _consume(self, m: int, row: dict, lo: int, cursor: int, packets: list,
+                 aa: int) -> tuple[int, bool]:
+        """Walk one (time, channel) cell's slots in stream order from
+        ``cursor`` (``lo``: the block's first per-channel sample), appending
+        packets; returns (the cursor after them, whether every slot filled
+        AND more hits exist past them)."""
+        ch = bin_to_channel(m)
+        adv = ch in (37, 38, 39)
+        k_per_block = self.block_wb // D
+        for k in range(len(row["pos"])):
+            if not row["valid"][k]:
+                return cursor, False
+            p = int(row["pos"][k])
+            if p >= k_per_block:
+                continue  # halo territory: owned by the next block
+            abs_p = lo + p
+            if abs_p < cursor:
+                continue
+            if adv and not row["len_ok"][k]:
+                cursor = abs_p + (32 + 16) * self._sps
+                continue
+            pl = int(row["payload_len"][k])
+            packets.append(WidebandPacket(
+                ch, abs_p, pl, bool(row["crc_ok"][k]),
+                row["pdu_bytes"][k, : 2 + pl].astype(np.uint8),
+                float(row["mag_mean"][k]), access_addr=aa))
+            cursor = abs_p + (32 + 16 + (pl + 3) * 8) * self._sps
+        return cursor, int(row["num_hits"]) > len(row["pos"])
+
+    def _walk_channel(self, m: int, host: dict, cache: dict, cursor: int,
+                      base: int, aa: int, need: set) -> dict:
+        """Channel m's walk over the step's time blocks, its rescans read
+        from ``cache``. A rescan not there is added to ``need`` and the
+        walk goes on from the cursor it has, so the next blocks' rescans
+        are asked for in the same round (a guess of their start that the
+        next round's walk checks: a cached result is keyed by it)."""
+        k_per_block = self.block_wb // D
+        found, events, used, done = [], [], 0, True
+        for t in range(host["pos"].shape[0]):
+            found.append([])
+            if not host["valid"][t, m, 0]:
+                continue
+            row = {k: v[t, m] for k, v in host.items()}
+            lo = base + t * k_per_block
+            cursor, exhausted = self._consume(m, row, lo, cursor, found[t], aa)
+            if exhausted:
+                events.append((t, m, int(row["num_hits"])))
+            # slot exhaustion: hits past the last slot were not decoded —
+            # rescan this channel's time block from the consumed cursor
+            # until the cell's territory is clean
+            while exhausted and cursor - lo < k_per_block:
+                key = (t, m, int(cursor - lo))
+                if key not in cache:
+                    need.add(key)
+                    done = False
+                    break
+                before = cursor
+                used += 1
+                cursor, exhausted = self._consume(m, cache[key], lo, cursor, found[t], aa)
+                if cursor == before:
+                    break  # remaining hits are all in the halo
+        return {"found": found, "events": events, "rescans": used,
+                "cursor": cursor, "done": done}
 
     def gather_packets(self, out) -> list:
-        """Host-side assembly: global packet list with per-channel
-        span-eating across time blocks (same semantics as the
-        single-device wideband sniffer). Candidate-slot overflow in a
-        (time, channel) cell triggers a rescan of that cell (never a
-        silent drop)."""
-        from ..wideband.sniffer import WidebandPacket
+        """Host-side assembly of the last step's output: the global packet
+        list with per-channel span-eating across time blocks (same
+        semantics as the single-device wideband sniffer), in (time block,
+        channel, position) order, the same on every rank. Candidate-slot
+        overflow in a (time, channel) cell triggers a rescan of that cell
+        (never a silent drop)."""
+        if self._last is None or self._last[0] is not out:
+            raise ValueError("gather_packets walks the output of the last step")
+        with span("shard.walk", block=self.steps - 1):
+            return self._walk(self._last[1])
 
+    def _walk(self, host: dict) -> list:
         # snapshot the keys this walk decodes with (follow handling may
-        # re-key the AA rows mid-walk for subsequent super-blocks)
+        # re-key the AA rows for subsequent steps)
         self._gather_aa = self.aa_rows
         self._gather_crc = self.crc_inits
         aa_np = self._aa_host
-
-        pos = _host(out["pos"])               # (T, M, K)
-        valid = _host(out["valid"])
-        plen = _host(out["payload_len"])
-        len_ok = _host(out["len_ok"])
-        crc_ok = _host(out["crc_ok"])
-        pdu = _host(out["pdu_bytes"])
-        mag = _host(out["mag_mean"])
-        num_hits = _host(out["num_hits"])
+        n_t = host["pos"].shape[0]
         k_per_block = self.block_wb // D
+        base = self._stream_offset_ch if self._stream else 0
+        start = self._cursors if self._stream else np.zeros(M, dtype=np.int64)
 
         # the keys THIS scan used (pcap PHDR AA per channel)
         chan_aa = [int.from_bytes(B.bits_to_bytes(aa_np[m]).tobytes(), "little")
                    for m in range(M)]
+        cache: dict = {}
+        walks: dict = {}
+        pending = range(M)
+        while True:
+            need: set = set()
+            for m in pending:
+                walks[m] = self._walk_channel(m, host, cache, int(start[m]), base,
+                                              chan_aa[m], need)
+            pending = [m for m in pending if not walks[m]["done"]]
+            if not pending:
+                break
+            with span("shard.rescan"):
+                cache.update(self._rescan_round(sorted(need)))
 
-        packets = []
-        cursors = np.zeros(M, dtype=np.int64)
-
-        def consume_cell(t, m, row) -> bool:
-            """Walk one (time, channel) cell's slots in stream order;
-            True iff every slot filled AND more hits exist past them."""
-            ch = bin_to_channel(m)
-            adv = ch in (37, 38, 39)
-            n_slots = len(row["pos"])
-            for k in range(n_slots):
-                if not row["valid"][k]:
-                    return False
-                p = int(row["pos"][k])
-                if p >= k_per_block:
-                    continue  # halo territory: owned by the next block
-                abs_p = t * k_per_block + p
-                if abs_p < cursors[m]:
-                    continue
-                if adv and not row["len_ok"][k]:
-                    cursors[m] = abs_p + (32 + 16) * self._sps
-                    continue
-                pl = int(row["payload_len"][k])
-                pkt = WidebandPacket(
-                    ch, abs_p, pl, bool(row["crc_ok"][k]),
-                    row["pdu_bytes"][k, : 2 + pl].astype(np.uint8),
-                    float(row["mag_mean"][k]),
-                    access_addr=chan_aa[m],
-                )
-                self._maybe_follow(pkt)
-                packets.append(pkt)
-                cursors[m] = abs_p + (32 + 16 + (pl + 3) * 8) * self._sps
-            return int(row["num_hits"]) > n_slots
-
-        for t in range(pos.shape[0]):
-            for m in range(M):
-                row = {"pos": pos[t, m], "valid": valid[t, m],
-                       "payload_len": plen[t, m], "len_ok": len_ok[t, m],
-                       "crc_ok": crc_ok[t, m], "pdu_bytes": pdu[t, m],
-                       "mag_mean": mag[t, m], "num_hits": num_hits[t, m]}
-                exhausted = consume_cell(t, m, row)
-                # slot exhaustion: hits past the last slot were not
-                # decoded — rescan this channel's time block from the
-                # consumed cursor until the cell's territory is clean
-                if exhausted and self.on_truncate is not None:
-                    self.on_truncate(t, m, int(num_hits[t, m]))
-                if exhausted and self._rescan_src is None:
-                    # run_placed() without __call__ keeps no input to
-                    # rescan from — count it loudly instead of dropping
-                    # silently (bench paths checksum outputs only)
-                    self.truncated_cells += 1
-                    exhausted = False
-                while exhausted and cursors[m] - t * k_per_block < k_per_block:
-                    before = cursors[m]
-                    self.truncated_cells += 1
-                    more = self._rescan_cell(t, m, int(cursors[m] - t * k_per_block))
-                    exhausted = consume_cell(t, m, more)
-                    if cursors[m] == before:
-                        break  # remaining hits are all in the halo
-        self._stream_offset_ch += pos.shape[0] * k_per_block
+        packets = [p for t in range(n_t) for m in range(M) for p in walks[m]["found"][t]]
+        if self.on_truncate is not None:
+            for t, m, hits in sorted(e for w in walks.values() for e in w["events"]):
+                self.on_truncate(t, m, hits)
+        rescans = sum(w["rescans"] for w in walks.values())
+        self.truncated_cells += rescans
+        count("rescan_cells", rescans)
+        for pkt in packets:
+            self._maybe_follow(pkt)
+        if self._stream:
+            self._cursors = np.array([walks[m]["cursor"] for m in range(M)], np.int64)
+        self._stream_offset_ch += n_t * k_per_block
         if self.multi_follower is not None:
             changed = self.multi_follower.on_tick(self._stream_offset_ch // CH_SPS)
             if changed or self._follow_dirty:

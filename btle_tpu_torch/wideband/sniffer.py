@@ -141,8 +141,9 @@ def rescan_channel(i_wb, q_wb, slot, aa_row, aa_mask, whiten_row, crc_init,
                    device=None):
     """Continue the span-eating scan of ONE channel bin ``slot`` past
     ``min_pos``, for a block with more AA hits in a channel than candidate
-    slots (the sharded scan's cells; WidebandSniffer batches the channels
-    of a block instead, ``_rescan``). Returns the candidate dict of that
+    slots (the JAX package's sharded scan rescans its cells so;
+    WidebandSniffer ``_rescan`` and the port's sharded scan batch a
+    round's channels instead). Returns the candidate dict of that
     channel (no channel axis), as the JAX function does."""
     dev = resolve_device(device)
     y_i, y_q = channelize(i_wb, q_wb, num_taps=num_taps,

@@ -4,8 +4,9 @@ module by name, so it imports nothing of JAX; the tests hold what the
 ranks return against the JAX package.
 
 ``scan_steps`` is the sharded scan over given streams, ``scan_jobs``
-several of them read from one file, ``packet_tuple`` a packet as a
-comparable tuple. This file holds no tests.
+several of them read from one file, ``stream_steps`` the per-process
+stream, ``packet_tuple`` a packet as a comparable tuple. This file holds
+no tests.
 """
 
 from __future__ import annotations
@@ -68,3 +69,50 @@ def scan_jobs(jobs_path: str) -> list:
     if dist.get_rank():
         out = [{"packets": r["packets"]} for r in out]
     return out
+
+
+def stream_steps(stream_path: str, n_steps: int, scan_kwargs: dict,
+                 trace: bool = False, exit_at: tuple | None = None) -> dict:
+    """Run inside each rank: the per-process sharded stream, n_ch 1 and a
+    time shard a rank, over the stream pickled at ``stream_path`` ((i, q)
+    host arrays): step k of rank t feeds the stream's block k * n_time +
+    t and, on the last time shard, the lookahead after it. With
+    ``trace``, under a tracer; ``exit_at`` (rank, step): that rank exits
+    with code 3 as the step starts. Returns {"packets": per step
+    [packet_tuple], "rssi": per step [RSSI statistic], "truncated",
+    "events" [(step, t, m, hits)], "steps", and with ``trace`` "spans"
+    [(name, step, parent's name)] and "counters"}."""
+    import contextlib
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from btle_tpu_torch.dist.multihost import MultiHostWidebandScan
+    from btle_tpu_torch.utils import profiling as P
+
+    with open(stream_path, "rb") as fh:
+        wi, wq = pickle.load(fh)
+    scan = MultiHostWidebandScan(1, device_type="cpu", **scan_kwargs)
+    events = []
+    scan.on_truncate = lambda t, m, hits: events.append((scan.steps - 1, t, m, hits))
+    tracer = P.Tracer(1 << 16)
+    pkts, rssi = [], []
+    with P.tracing(tracer) if trace else contextlib.nullcontext():
+        for k in range(n_steps):
+            if exit_at == (dist.get_rank(), k):
+                os._exit(3)
+            s = (k * scan.n_time + scan.t_idx) * scan.block_wb
+            e = s + scan.block_wb + scan.lookahead_wb
+            got = scan.gather_packets(scan(wi[s:e], wq[s:e]))
+            pkts.append([packet_tuple(p) for p in got])
+            rssi.append([float(p.rssi_mag) for p in got])
+    out = {"packets": pkts, "rssi": rssi, "truncated": scan.truncated_cells,
+           "events": events, "steps": scan.steps}
+    if trace:
+        spans = tracer.spans()
+        out["spans"] = [(r.name, r.block, spans[r.parent].name if r.parent >= 0 else None)
+                        for r in spans]
+        out["counters"] = dict(tracer.counters)
+    return out
+

@@ -1,6 +1,7 @@
 """The port's tracer (btle_tpu_torch.utils.profiling): spans, counters and
-their totals; the sites in the wideband and narrowband block loops; the
-off path, which reads no clock; the btle.* ranges under torch.profiler;
+their totals; the sites in the wideband and narrowband block loops and
+in the sharded stream's steps (two gloo ranks); the off path, which
+reads no clock; the btle.* ranges under torch.profiler;
 and the ring's count of refused pairs."""
 
 from __future__ import annotations
@@ -289,6 +290,84 @@ def test_off_path_reads_no_clock(monkeypatch, tmp_path, dense_scene):
     sn.process(wi[:blk], wq[:blk])
     assert sn.truncated_channels > 0
     assert sum(e.crc_ok for e in nb.run(src)) == 3
+
+
+SHARD_SPANS = ("shard.ingest", "shard.exchange", "shard.scan", "shard.gather", "shard.walk")
+
+
+@pytest.fixture(scope="module")
+def shard_ranks(dense_scene, tmp_path_factory):
+    """Two gloo ranks of the per-process sharded stream (mesh (1, 2), a
+    block a rank) over the dense scene for two steps, each under a
+    tracer: their spans and counters."""
+    import pickle
+
+    from btle_tpu_torch.dist import dryrun
+
+    import test_torch_dist_ranks as ranks_mod
+
+    wi, wq = (np.pad(v, (0, 2 * SCAN_LEN * 20)) for v in dense_scene)
+    path = tmp_path_factory.mktemp("shard") / "stream.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump((wi, wq), fh)
+    kw = {"block_wb": SCAN_LEN * 20, "fused": True, "fused_dtype": "f32",
+          "max_candidates": 2}
+    return dryrun.spawn(2, ranks_mod.stream_steps, str(path), 2, kw, True,
+                        backend="gloo", device_type="cpu", timeout=300)
+
+
+def test_shard_spans_nest_and_carry_their_step(shard_ranks):
+    """Each step's five top-level shard spans carry the step; a rescan
+    round nests in the walk of its step; the counters count the rescans
+    (``rescan_cells`` equals ``truncated_cells``), the exchange's bytes
+    sent, the gathers' bytes received and the uploads."""
+    block_wb, ctx = SCAN_LEN * 20, 1279
+    halo = min(block_wb, (32 + 336) * 4 * 20 + 4 * 20 + 1280)
+    for rank, res in enumerate(shard_ranks):
+        spans, c = res["spans"], res["counters"]
+        for name in SHARD_SPANS:
+            assert sorted(b for n, b, parent in spans if n == name and parent is None) \
+                == [0, 1], (rank, name)
+        rescans = [(b, parent) for n, b, parent in spans if n == "shard.rescan"]
+        assert rescans and all(parent == "shard.walk" for _, parent in rescans)
+        assert {b for b, _ in rescans} <= {0, 1}
+        assert c["rescan_cells"] == res["truncated"] > 0
+        # rank 0 sends its tail to its right neighbour; rank 1, the last
+        # shard, its head to the left and its tail round to rank 0
+        sent = 2 * 4 * (ctx if rank == 0 else halo + ctx)
+        assert c["halo_bytes"] == 2 * sent
+        assert c["gather_bytes"] > 0
+        # the two IQ uploads a step; a step whose rescans this rank
+        # serves adds the plain channelizer's four tables
+        extra = c["h2d_copies"] - 2 * 2
+        assert extra >= 0 and extra % 4 == 0
+    assert shard_ranks[0]["packets"] == shard_ranks[1]["packets"]
+
+
+def test_shard_off_path_records_nothing(monkeypatch, dense_scene):
+    """With no tracer on, steps of the stream at world size 1 (mesh (1,
+    1), gloo in this process) that rescan read no perf_counter_ns."""
+    import torch.distributed as dist
+
+    from btle_tpu_torch.dist import ShardedWidebandScan, make_mesh
+    from btle_tpu_torch.dist.dryrun import free_port
+
+    wi, wq = (torch.as_tensor(v, dtype=torch.float32) for v in dense_scene)
+    block_wb = SCAN_LEN * 20
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        scan = ShardedWidebandScan(make_mesh(1, 1, "cpu"), block_wb=block_wb, fused=True,
+                                   fused_dtype="f32", max_candidates=2)
+        monkeypatch.setattr(time, "perf_counter_ns", _no_clock)
+        assert P.active_tracer() is None
+        for k in range(2):
+            s = slice(k * block_wb, (k + 1) * block_wb)
+            scan.gather_packets(scan.run_placed(wi[s], wq[s]))
+        monkeypatch.undo()
+        assert scan.truncated_cells > 0
+    finally:
+        dist.destroy_process_group()
 
 
 def test_profiler_ranges_enclose_the_ops(tmp_path):
