@@ -167,12 +167,23 @@ class IqRingBuffer:
         return written
 
     # -------------------------- consumer --------------------------
-    def read_block(self, scan_len: int, halo: int):
+    def read_block(self, scan_len: int, halo: int, out=None):
         """(i, q) int16 of scan_len+halo samples, or None if not enough
-        buffered. Consumes scan_len samples (overlap-save)."""
+        buffered. Consumes scan_len samples (overlap-save). ``out``, a
+        pair of writable C-contiguous int16 arrays of scan_len+halo
+        samples, receives the block in place of two new arrays."""
         total = scan_len + halo
-        i = np.empty(total, dtype=np.int16)
-        q = np.empty(total, dtype=np.int16)
+        if out is None:
+            i = np.empty(total, dtype=np.int16)
+            q = np.empty(total, dtype=np.int16)
+        else:
+            i, q = out
+            for a in (i, q):
+                if not (isinstance(a, np.ndarray) and a.dtype == np.int16
+                        and a.shape == (total,) and a.flags.c_contiguous
+                        and a.flags.writeable):
+                    raise ValueError(f"out must be two writable C-contiguous "
+                                     f"int16 arrays of {total} samples")
         got = self._lib.iq_ring_read_block(
             self._ptr, i.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
             q.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), scan_len, halo)

@@ -158,6 +158,39 @@ def rescan_channel(i_wb, q_wb, slot, aa_row, aa_mask, whiten_row, crc_init,
     return {k: v[0] for k, v in out.items()}
 
 
+# staging slots of one (dtype, length): a block's upload reads its slot
+# while the host stages the next ones, so two or three serve any pipeline
+# depth (the handle keeps the device copy, not the slot)
+STAGING_SLOTS = 3
+
+
+class _Slot:
+    """A reused host buffer a block is staged in: row 0 I, row 1 Q, each
+    the filter context, then the block. Pinned on a card, where ``done``
+    is the CUDA event recorded after its last upload."""
+
+    def __init__(self, host: torch.Tensor):
+        self.host = host
+        self.rows = host.numpy()
+        self.done = torch.cuda.Event() if host.is_pinned() else None
+
+    def free(self) -> bool:
+        return self.done is None or self.done.query()
+
+    def fits(self, dtype, n) -> bool:
+        return self.rows.dtype == dtype and self.rows.shape[1] == n
+
+    def holds(self, i_wb, q_wb, head: int) -> bool:
+        """Whether (i_wb, q_wb) are this slot's rows past ``head``."""
+        for row, a in zip(self.rows, (i_wb, q_wb)):
+            want = row[head:]
+            if not (isinstance(a, np.ndarray) and a.dtype == want.dtype
+                    and a.shape == want.shape and a.strides == want.strides
+                    and a.ctypes.data == want.ctypes.data):
+                return False
+        return True
+
+
 def _rows(t, rows):
     """Rows ``rows`` of ``t`` as one tensor, stacked from row views (no
     index upload)."""
@@ -273,6 +306,8 @@ class WidebandSniffer:
         self._ctx_len = cfg.num_taps - 1
         self._ctx_i = np.zeros(self._ctx_len, np.float32)
         self._ctx_q = np.zeros(self._ctx_len, np.float32)
+        self._slots: list[_Slot] = []   # least recently staged first
+        self._lent: _Slot | None = None   # the slot staging_views handed out
         self.truncated_channels = 0   # candidate-capacity overflows seen
         self.blocks_dispatched = 0    # scan_async calls: a handle's "block"
         self._aa_np = None            # per-block snapshot of aa_rows
@@ -415,26 +450,79 @@ class WidebandSniffer:
                 "aa_rows": self.aa_rows, "crc_inits": self.crc_inits,
                 "block": k}
 
+    def staging_views(self, dtype=np.int16):
+        """Where a producer writes the next block: the I and Q rows, past
+        the filter context, of a free staging slot, wb_block_len samples of
+        ``dtype`` each. scan_async given exactly these views stages the
+        block where it lies; until then they stay lent, and a later call
+        returns them again."""
+        dtype = np.dtype(dtype)
+        head = len(self._ctx_i)
+        lent = self._lent
+        if lent is None or not lent.fits(dtype, head + self.wb_block_len):
+            lent = self._lent = self._free_slot(dtype, head + self.wb_block_len)
+        return lent.rows[0, head:], lent.rows[1, head:]
+
+    def _free_slot(self, dtype, n) -> _Slot:
+        """A staging slot of ``n`` samples of ``dtype`` whose last upload
+        is done (not the lent one): a free one, a new one while there are
+        fewer than STAGING_SLOTS, else the least recently staged once its
+        upload ends."""
+        fits = [s for s in self._slots if s is not self._lent and s.fits(dtype, n)]
+        for s in fits:
+            if s.free():
+                return s
+        if len(fits) < STAGING_SLOTS:
+            # slots of another dtype or length are not reused once free
+            self._slots = [s for s in self._slots
+                           if s is self._lent or s.fits(dtype, n) or not s.free()]
+            host = torch.empty((2, n), dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                               pin_memory=self.device.type == "cuda")
+            self._slots.append(_Slot(host))
+            return self._slots[-1]
+        fits[0].done.synchronize()
+        return fits[0]
+
     def _stage(self, i_wb, q_wb):
-        """The block with the filter context before it, uploaded; the
-        context of the next block kept."""
-        # integer wire formats stay integer on the host->device link (the
-        # cast runs on the device)
-        i_wb = np.asarray(i_wb)
-        q_wb = np.asarray(q_wb)
-        if i_wb.dtype.kind not in "iu":
-            i_wb = i_wb.astype(np.float32)
-            q_wb = q_wb.astype(np.float32)
-        if self._ctx_i.dtype != i_wb.dtype:
-            self._ctx_i = self._ctx_i.astype(i_wb.dtype)
-            self._ctx_q = self._ctx_q.astype(i_wb.dtype)
-        xi = np.concatenate([self._ctx_i, i_wb])
-        xq = np.concatenate([self._ctx_q, q_wb])
+        """The block with the filter context before it, in a staging slot,
+        uploaded in one copy; the context of the next block kept. A block
+        in the lent slot's views is staged where it lies; any other input
+        is copied into a slot once."""
+        head = len(self._ctx_i)
+        slot = self._lent
+        if slot is not None and slot.holds(i_wb, q_wb, head):
+            self._lent = None
+        else:
+            i_wb = np.asarray(i_wb)
+            q_wb = np.asarray(q_wb)
+            if i_wb.shape != q_wb.shape or i_wb.ndim != 1:
+                raise ValueError("I and Q must be 1-D arrays of one length")
+            # integer wire formats stay integer on the host->device link
+            # (the cast runs on the device)
+            dtype = i_wb.dtype if i_wb.dtype.kind in "iu" else np.dtype(np.float32)
+            slot = self._free_slot(dtype, head + len(i_wb))
+            count("stage_copies")
+            slot.rows[0, head:] = i_wb
+            slot.rows[1, head:] = q_wb
+        self._slots.remove(slot)
+        self._slots.append(slot)
+        x = slot.rows
+        if self._ctx_i.dtype != x.dtype:
+            self._ctx_i = self._ctx_i.astype(x.dtype)
+            self._ctx_q = self._ctx_q.astype(x.dtype)
+        x[0, :head] = self._ctx_i
+        x[1, :head] = self._ctx_q
         # the next block starts right after this block's territory
         step = self.cfg.scan_len_ch * D
-        self._ctx_i = xi[step : step + self._ctx_len].copy()
-        self._ctx_q = xq[step : step + self._ctx_len].copy()
-        return self._upload(xi), self._upload(xq)
+        self._ctx_i = x[0, step : step + self._ctx_len].copy()
+        self._ctx_q = x[1, step : step + self._ctx_len].copy()
+        count("h2d_copies")
+        if self.device.type != "cuda":
+            dx = slot.host.clone()    # the slot is reused
+        else:
+            dx = slot.host.to(self.device, non_blocking=True)
+            slot.done.record(torch.cuda.current_stream(self.device))
+        return dx[0], dx[1]
 
     def _wait(self, host, done, layout):
         if done is not None:

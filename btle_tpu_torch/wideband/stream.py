@@ -227,7 +227,10 @@ class WidebandStreamRunner:
         while True:
             stop = should_stop() if should_stop is not None else False
             with span("run_live.read", block=sn.blocks_dispatched):
-                blk = None if stop else ring.read_block(step, halo_wb)
+                # the block lands in the sniffer's staging slot, behind
+                # the room its filter context takes
+                blk = None if stop else ring.read_block(
+                    step, halo_wb, out=sn.staging_views(np.int16))
             if blk is not None:
                 if control is not None:
                     writes = control.poll()

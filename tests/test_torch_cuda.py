@@ -20,7 +20,8 @@ wide (sps 1, 2, 4, 8; n_out one below, at and above a tile's end) and
 narrow tiles, with scalar-load row strides and at the K11 shape — every
 knob-matrix row's self-test, and the
 port's device path against its CPU path (wideband sniffer with and
-without connection following, its live ring loop, the narrowband
+without connection following, its live ring loop and its pinned
+staging slots at pipeline depths 1-3, the narrowband
 sniffer); then V1, the coded Viterbi, bit for bit on soft and tied hard
 inputs (one warp a CTA above 48 KB of shared memory), the narrowband and
 40-channel LE Coded receivers against the CPU with V1's launch count,
@@ -549,6 +550,61 @@ def test_follow_sniffer_on_card_matches_cpu(dev, mode, max_follow):
                         < runner.sn.wb_block_len)
         ring.close()
         assert {p.channel for p in got if p.crc_ok} == {p[0] for p in out[1][0]}
+
+
+@pytest.mark.parametrize("pipeline", [1, 2, 3])
+def test_run_live_staging_on_card_matches_file_run(dev, pipeline):
+    """run_live over the native ring, each block read into a pinned
+    staging slot and uploaded from there, gives run_capture's packets of
+    the same int16 IQ; no slot is lent or written while its last upload
+    is still pending."""
+    from btle_tpu_torch import runtime
+    from btle_tpu_torch.wideband.stream import WidebandStreamRunner
+
+    if not runtime.available():
+        pytest.skip("the native runtime did not build (no g++)")
+    wi, wq = _follow_scene()
+    i16, q16 = np.round(wi * 64).astype(np.int16), np.round(wq * 64).astype(np.int16)
+    cfg = WidebandConfig(fused=True, fused_dtype="bf16x2w")
+    live = WidebandStreamRunner(WidebandSniffer(cfg, device=dev))
+    sn = live.sn
+    halo_wb = sn.halo_ch * 20
+    inter = np.zeros(2 * (len(i16) + halo_wb), np.int16)
+    inter[0:2 * len(i16):2], inter[1:2 * len(i16):2] = i16, q16
+    pending_writes = []
+    free_slot, views = sn._free_slot, sn.staging_views
+
+    def checked_free_slot(*a):
+        s = free_slot(*a)
+        pending_writes.append(not s.free())
+        return s
+
+    def checked_views(*a):
+        out = views(*a)
+        pending_writes.append(not sn._lent.free())
+        return out
+
+    sn._free_slot, sn.staging_views = checked_free_slot, checked_views
+    ring = runtime.IqRingBuffer(1 << 22)
+    assert ring.write(inter, "i16") == len(inter) // 2
+    got = []
+    consume = live.consume
+    live.consume = lambda h: got.extend(consume(h)) or got
+    live.run_live(ring, pipeline=pipeline,
+                  should_stop=lambda: ring.available_pairs < sn.wb_block_len)
+    ring.close()
+    file_run = WidebandStreamRunner(WidebandSniffer(cfg, device=dev))
+    want = file_run.run_capture(np.append(i16, np.zeros(halo_wb, np.int16)),
+                                np.append(q16, np.zeros(halo_wb, np.int16)))
+
+    def key(pkts):
+        return [(p.channel, p.sample_pos, p.crc_ok, p.pdu_bytes.tobytes(), p.rssi_mag)
+                for p in pkts]
+
+    assert sn.blocks_dispatched == file_run.sn.blocks_dispatched == 4
+    assert key(got) == key(want) and sum(p.crc_ok for p in got) >= 2
+    assert pending_writes and not any(pending_writes)
+    assert len(sn._slots) <= 3 and all(s.host.is_pinned() for s in sn._slots)
 
 
 @pytest.mark.parametrize("kw", [dict(compute_dtype="bf16x2w"),

@@ -214,10 +214,54 @@ def test_wideband_spans_and_rescans(dense_scene):
     assert spans["consume_scan.rescan"]["count"] == len(rescanned) + fallbacks
     assert spans["consume_scan.rescan"]["count"] < sn.truncated_channels
     assert {r.block for r in recs if r.name == "consume_scan.rescan"} == rescanned
-    # uploads: the two IQ arrays a block; a block's rescans add the plain
-    # channelizer's four tables once
-    assert tot["counters"]["h2d_copies"] == 2 * n + 4 * len(rescanned)
+    # uploads: one of a block's staging slot (I and Q rows); a block's
+    # rescans add the plain channelizer's four tables once. A file block is
+    # copied into its slot once
+    assert tot["counters"]["h2d_copies"] == n + 4 * len(rescanned)
+    assert tot["counters"]["stage_copies"] == n
     assert spans["consume_scan"]["self_ns"] < spans["consume_scan"]["total_ns"]
+
+
+def _rescanned(tr):
+    return {c.block for c in tr.counts() if c.name == "rescan_channels"}
+
+
+@pytest.mark.parametrize("pipeline", [1, 2])
+def test_wideband_ring_path_stages_in_place(dense_scene, pipeline):
+    """run_live over the native ring: each block lands in the sniffer's
+    staging slot, so staging copies no block on the host and makes one
+    upload a block; the packets equal the file run's of the same int16
+    samples."""
+    if not runtime.available():
+        pytest.skip("the native runtime did not build (no g++)")
+    wi, wq = dense_scene
+    i16 = np.round(wi).astype(np.int16)    # the scene peaks near 380
+    q16 = np.round(wq).astype(np.int16)
+    runner = _wideband_runner()
+    halo = runner.sn.halo_ch * 20
+    inter = np.zeros(2 * (len(i16) + halo), np.int16)
+    inter[0: 2 * len(i16): 2], inter[1: 2 * len(i16): 2] = i16, q16
+    ring = runtime.IqRingBuffer(1 << 20)
+    assert ring.write(inter, "i16") == len(inter) // 2
+    got = []
+    consume = runner.consume
+    runner.consume = lambda h: got.extend(consume(h)) or got
+    tr = P.Tracer(4096)
+    with P.tracing(tr):
+        runner.run_live(ring, pipeline=pipeline,
+                        should_stop=lambda: ring.available_pairs < runner.sn.wb_block_len)
+    ring.close()
+    n = runner.sn.blocks_dispatched
+    tot = tr.totals()
+    assert n == 3 and _rescanned(tr)
+    assert tot["counters"]["h2d_copies"] == n + 4 * len(_rescanned(tr))
+    assert "stage_copies" not in tot["counters"]
+    file_run = _wideband_runner()
+    want = file_run.run_capture(i16, q16)
+    key = [(p.channel, p.sample_pos, p.crc_ok, p.pdu_bytes.tobytes()) for p in got]
+    assert key == [(p.channel, p.sample_pos, p.crc_ok, p.pdu_bytes.tobytes())
+                   for p in want]
+    assert sum(p.crc_ok for p in got) >= 6
 
 
 def _nb_capture(tmp_path):
