@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.profiling import count
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
@@ -24,3 +26,14 @@ def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a new tensor on ``device``, counted as one
+    ``h2d_copies``: on a card through pinned memory, non-blocking (no
+    wait for the work in flight, which keeps the tensors it was given)."""
+    count("h2d_copies")
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)

@@ -34,11 +34,11 @@ from __future__ import annotations
 
 from datetime import timedelta
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils.profiling import count, span
+from .._device import upload
+from ..utils.profiling import span
 from .shard import ShardedWidebandScan, make_mesh
 
 # the time limit of the group's rendezvous and of every collective on it
@@ -88,16 +88,6 @@ class MultiHostWidebandScan(ShardedWidebandScan):
         (the next step's first halo_wb samples); 0 on the other shards."""
         return self.halo_wb if self.t_idx == self.n_time - 1 else 0
 
-    def _upload(self, v) -> torch.Tensor:
-        """A host array on this rank's device as float32: integer wire
-        formats cross the link as they are (the cast runs on the device),
-        on a card through pinned memory, non-blocking."""
-        count("h2d_copies")
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(torch.float32)
-
     def __call__(self, i_local, q_local):
         """Run one step. In multi-process mode, pass only this process's
         slice of the step: its block_wb samples, and on the last time
@@ -112,6 +102,8 @@ class MultiHostWidebandScan(ShardedWidebandScan):
                                  + (f" and up to {self.lookahead_wb} more"
                                     if self.lookahead_wb else "")
                                  + f", got {len(i_local)}")
-            x = [self._upload(v) for v in (i_local, q_local)]
+            # integer wire formats cross the link as they are: the cast to
+            # float32 runs on the device
+            x = [upload(v, self.device).to(torch.float32) for v in (i_local, q_local)]
         head = tuple(v[self.block_wb:] for v in x) if extra else None
         return self.run_placed(x[0][: self.block_wb], x[1][: self.block_wb], head)

@@ -53,7 +53,8 @@ never dropped: the walk asks for every rescan it needs, the rank that
 holds the cell's time block (and channel group) channelizes its shard
 window once a step with the plain channelizer and decodes all of a
 round's cells in one call, and one gather a round gives every rank the
-results (``WidebandSniffer._rescan``'s rounds, over the mesh).
+results. The span-eating rule, the rescan decode and the scan keys are
+``wideband.walk``'s, which the one-card sniffer calls too.
 
 Spans and counters (``utils.profiling``; idle unless a tracer is on),
 each span carrying its step: ``shard.ingest`` (multihost), ``shard.
@@ -70,17 +71,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..rx.pipeline import (PACK_KEYS, decode_block, pack_candidates,
-                           required_halo, unpack_candidates)
-from ..spec import bits as B
-from ..spec import crc24 as C
-from ..spec import whitening as W
+from ..rx.pipeline import (decode_block, pack_candidates, required_halo,
+                           unpack_candidates)
 from ..utils.profiling import count, span
 from ..wideband.channelizer import (DEFAULT_TAPS, D, M, _dft_matrix,
-                                    _poly_kernel, bin_to_channel,
-                                    branch_columns, channelize, true_fp32)
-from ..wideband.sniffer import (WidebandPacket, _rows, ch_sps_for_phy,
-                                cutoff_for_phy, try_track_connection)
+                                    _poly_kernel, branch_columns, true_fp32)
+from ..wideband.walk import (ADV_CHANNELS, CH_SPS, Rescan, ScanKeys,
+                             ch_sps_for_phy, consume_row, cutoff_for_phy,
+                             parse_packet, try_track_connection)
 
 
 def _branch_split_plan(num_taps: int, cutoff_mhz: float = 1.0):
@@ -100,12 +98,6 @@ def _branch_split_plan(num_taps: int, cutoff_mhz: float = 1.0):
     return cols, kernels
 
 
-CH_SPS = 4
-# Symbol-lag phase-difference decisions (the golden model's demod,
-# btlelib.py:395-400): after the channelizer's 1 MHz lowpass this reaches
-# the reference BER anchors (~11 dB @ 0 ppm), ~2 dB better than the C
-# tool's 1-sample lag.
-CH_LAG = 4
 MESH_DIMS = ("ch", "time")
 
 
@@ -186,18 +178,12 @@ class ShardedWidebandScan:
         self.c_idx, self.t_idx = coord
 
         dev = self.device
-        aa_adv = B.hex_to_bits(access_address_hex)
-        crc = C.lfsr_init_to_table_init(crc_init_hex)
-        self._set_tables(np.tile(aa_adv, (M, 1)), np.full(M, crc, np.int32))
-        self.aa_mask = torch.ones(32, dtype=torch.int8, device=dev)
+        # the keys of the steps run from now on
+        self.keys = ScanKeys.advertising(access_address_hex, crc_init_hex, dev)
         cols, kernels = _branch_split_plan(num_taps, self.cutoff_mhz)
         self.branch_cols = torch.as_tensor(cols, dtype=torch.long, device=dev)
         self.kernel = torch.as_tensor(kernels, device=dev)               # (M, 1, W)
         self.dft_r, self.dft_i = (torch.as_tensor(a, device=dev) for a in _dft_matrix())
-        self.whiten_rows = torch.as_tensor(np.stack(
-            [W.whitening_bits(bin_to_channel(m), 336) for m in range(M)]), device=dev)
-        self.adv_flags = torch.as_tensor(
-            np.array([bin_to_channel(m) in (37, 38, 39) for m in range(M)]), device=dev)
 
         # optional connection following (hop-pattern tracking across
         # shards): a CONNECT_REQ seen in gather_packets re-keys the
@@ -220,17 +206,8 @@ class ShardedWidebandScan:
         self._cursors = np.zeros(M, dtype=np.int64)  # the stream's, across steps
         self._wrap_ctx = None        # time shard 0's context for the next step
         self._last = None            # (the step's output, its host copy)
-        self._window = None          # this rank's shard window (ctx + block + head)
-        self._plain = None           # its plain channelization, once a step
+        self._rescan = None          # the rescans of this rank's shard window
         self._row_layout = None      # one (time, channel) cell of packed candidates
-
-    def _set_tables(self, aa_rows, crc_inits):
-        """The AA rows and CRC inits the next steps decode with: host
-        copies and tensors on this rank's device."""
-        self._aa_host = np.asarray(aa_rows, np.int8).copy()
-        self._crc_host = np.asarray(crc_inits, np.int32).copy()
-        self.aa_rows = torch.as_tensor(self._aa_host, device=self.device)
-        self.crc_inits = torch.as_tensor(self._crc_host, device=self.device)
 
     # ------------------------------------------------------------------
     def _neighbour(self, dt: int) -> int:
@@ -316,9 +293,9 @@ class ShardedWidebandScan:
         m_idx = torch.arange(M, device=y.device)[:, None]
         sign = 1.0 - 2.0 * ((m_idx * k_idx) % 2).to(torch.float32)
         y = y * sign
-        return decode_block(y[0, grp], y[1, grp], self.aa_rows[grp], self.aa_mask,
-                            self.whiten_rows[grp], self.crc_inits[grp],
-                            self.adv_flags[grp], sps=self._sps, lag=self._lag,
+        aa, mask, whiten, crc, adv = self.keys.tables
+        return decode_block(y[0, grp], y[1, grp], aa[grp], mask, whiten[grp], crc[grp],
+                            adv[grp], sps=self._sps, lag=self._lag,
                             max_candidates=self.max_candidates)
 
     def _mesh_gather(self, x):
@@ -337,22 +314,6 @@ class ShardedWidebandScan:
             x = torch.stack(parts)
         return x
 
-    def _split(self, packed, layout: dict, host: bool) -> dict:
-        """The global (n_time, n_ch * chunk, ...) arrays of gathered
-        packed vectors (n_time, n_ch, L): device tensors, or numpy arrays
-        of the host copy."""
-        full, off = {}, 0
-        for k, (shape, dtype) in layout.items():
-            n = int(np.prod(shape))
-            seg = packed[..., off: off + n].reshape(self.n_time, self.n_ch, *shape)
-            if dtype == np.float32:
-                seg = seg.view(np.float32) if host else seg.view(torch.float32)
-            elif dtype == np.bool_:
-                seg = seg.astype(bool) if host else seg.to(torch.bool)
-            full[k] = seg.reshape(self.n_time, self.n_ch * shape[0], *shape[1:])
-            off += n
-        return full
-
     def _gather(self, out: dict) -> dict:
         """Every rank's (chunk, ...) candidate arrays -> the global
         (n_time, M, ...) arrays on every rank: one packed int32 vector
@@ -361,8 +322,10 @@ class ShardedWidebandScan:
         packed, layout = pack_candidates(out)
         packed = self._mesh_gather(packed)                  # (n_time, n_ch, L)
         self._row_layout = {k: (shape[1:], dtype) for k, (shape, dtype) in layout.items()}
-        full = self._split(packed, layout, host=False)
-        self._last = (full, self._split(packed.cpu().numpy(), layout, host=True))
+        full, host = ({k: v.reshape(self.n_time, M, *v.shape[3:])
+                       for k, v in unpack_candidates(p, layout).items()}
+                      for p in (packed, packed.cpu().numpy()))
+        self._last = (full, host)
         return full
 
     def _step(self, xi, xq, head, stream: bool) -> dict:
@@ -376,18 +339,17 @@ class ShardedWidebandScan:
         with span("shard.scan", block=k):
             xi_h = torch.cat([ctx_i, xi, head_i])
             xq_h = torch.cat([ctx_q, xq, head_q])
-            # kept for the rescans of this rank's cells
-            self._window, self._plain = (xi_h, xq_h), None
+            kw = dict(sps=self._sps, lag=self._lag, max_candidates=self.max_candidates,
+                      num_taps=self.num_taps, has_context=True,
+                      cutoff_mhz=self.cutoff_mhz, device=self.device)
+            # the rescans of this rank's cells, with the keys of this scan
+            self._rescan = Rescan(xi_h, xq_h, self.keys.tables, **kw)
             if self.fused:
                 from ..wideband.fused import wideband_scan_fused
 
-                out = wideband_scan_fused(
-                    xi_h, xq_h, self.aa_rows, self.aa_mask, self.whiten_rows,
-                    self.crc_inits, self.adv_flags, sps=self._sps, lag=self._lag,
-                    max_candidates=self.max_candidates, num_taps=self.num_taps,
-                    has_context=True, tile=self.fused_tile,
-                    compute_dtype=self.fused_dtype, cutoff_mhz=self.cutoff_mhz,
-                    device=self.device)
+                out = wideband_scan_fused(xi_h, xq_h, *self.keys.tables,
+                                          tile=self.fused_tile,
+                                          compute_dtype=self.fused_dtype, **kw)
             else:
                 out = self._branch_split(xi_h, xq_h)
         with span("shard.gather", block=k):
@@ -426,7 +388,7 @@ class ShardedWidebandScan:
             from ..ll.multifollow import MultiConnectionFollower
 
             self.multi_follower = MultiConnectionFollower(
-                self._aa_host, self._crc_host, max_connections=max_follow,
+                self.keys.aa_host, self.keys.crc_host, max_connections=max_follow,
                 drop_after_intervals=drop_after_intervals)
         else:
             from ..ll.hop import HopTracker
@@ -443,33 +405,24 @@ class ShardedWidebandScan:
         now_us = ((0 if self._stream else self._stream_offset_ch)
                   + pkt.sample_pos) // CH_SPS
         if self.multi_follower is not None:
-            adv = pkt.channel in (37, 38, 39)
+            adv = pkt.channel in ADV_CHANNELS
             if not adv and pkt.crc_ok and pkt.payload is None:
                 # parse data PDUs so sniffed LL map/interval updates reach
-                # the owning tracker (ll.hop.on_ll_ctrl), like the
-                # single-device wideband sniffer's _attach_parse path
-                from ..ll.pdu import parse_ll_header, parse_ll_payload
-
-                try:
-                    pkt.header = parse_ll_header(pkt.pdu_bytes[:2])
-                    pkt.payload = parse_ll_payload(pkt.pdu_bytes[2:],
-                                                   pkt.header.llid)
-                except ValueError:
-                    pass
+                # the owning tracker (ll.hop.on_ll_ctrl)
+                parse_packet(pkt)
             self._follow_dirty |= self.multi_follower.on_packet(pkt, adv, now_us)
             return
         res = try_track_connection(self.hop_tracker, pkt, now_us,
-                                   self._aa_host, self._crc_host)
+                                   self.keys.aa_host, self.keys.crc_host)
         if res is not None:
             self.connection = res[0]
-            self._set_tables(res[1], res[2])
+            self.keys = self.keys.rekey(res[1], res[2])
 
     def _rescan_round(self, need: list) -> dict:
         """One round of rescans: ``need`` [(t, m, min_pos)], the same on
         every rank. The rank that holds cell (t, m) continues channel m's
         scan of its block past min_pos (per-channel samples relative to
-        the block): its shard window's plain channelization (once a
-        step), then one ``decode_block`` over the rows of all its cells
+        the block): one ``Rescan.decode`` over the rows of all its cells
         (K7 and K4 on a card). One gather gives every rank every result:
         {(t, m, min_pos): the cell's candidate row (host arrays)}."""
         chunk = M // self.n_ch
@@ -481,58 +434,20 @@ class ShardedWidebandScan:
         rows = torch.zeros((width, row_len), dtype=torch.int32, device=self.device)
         mine = owned.get((self.c_idx, self.t_idx), [])
         if mine:
-            if self._plain is None:
-                self._plain = channelize(*self._window, num_taps=self.num_taps,
-                                         has_context=True, cutoff_mhz=self.cutoff_mhz,
-                                         device=self.device)
-            y_i, y_q = self._plain
-            ms = [m for _, m, _ in mine]
-            # fill kernels take each value as an argument: no
-            # host-to-device copy (an item assignment makes one)
-            min_pos = torch.empty(len(mine), dtype=torch.int32, device=self.device)
-            for j, (_, _, p) in enumerate(mine):
-                min_pos[j].fill_(p)
-            more = decode_block(
-                _rows(y_i, ms), _rows(y_q, ms), _rows(self._gather_aa, ms),
-                self.aa_mask, _rows(self.whiten_rows, ms), _rows(self._gather_crc, ms),
-                _rows(self.adv_flags, ms), sps=self._sps, lag=self._lag,
-                max_candidates=self.max_candidates, min_pos=min_pos)
-            rows[: len(mine)] = torch.cat(
-                [(more[k].view(torch.int32) if more[k].dtype == torch.float32
-                  else more[k].to(torch.int32)).reshape(len(mine), -1)
-                 for k in PACK_KEYS], dim=1)
+            more = self._rescan.decode([m for _, m, _ in mine], [p for _, _, p in mine])
+            rows[: len(mine)] = pack_candidates(more, lead=1)[0]
         host = self._mesh_gather(rows).cpu().numpy()       # (n_time, n_ch, width, L)
         return {key: unpack_candidates(host[t, c, j], self._row_layout)
                 for (c, t), keys in owned.items() for j, key in enumerate(keys)}
 
     def _consume(self, m: int, row: dict, lo: int, cursor: int, packets: list,
                  aa: int) -> tuple[int, bool]:
-        """Walk one (time, channel) cell's slots in stream order from
-        ``cursor`` (``lo``: the block's first per-channel sample), appending
-        packets; returns (the cursor after them, whether every slot filled
-        AND more hits exist past them)."""
-        ch = bin_to_channel(m)
-        adv = ch in (37, 38, 39)
-        k_per_block = self.block_wb // D
-        for k in range(len(row["pos"])):
-            if not row["valid"][k]:
-                return cursor, False
-            p = int(row["pos"][k])
-            if p >= k_per_block:
-                continue  # halo territory: owned by the next block
-            abs_p = lo + p
-            if abs_p < cursor:
-                continue
-            if adv and not row["len_ok"][k]:
-                cursor = abs_p + (32 + 16) * self._sps
-                continue
-            pl = int(row["payload_len"][k])
-            packets.append(WidebandPacket(
-                ch, abs_p, pl, bool(row["crc_ok"][k]),
-                row["pdu_bytes"][k, : 2 + pl].astype(np.uint8),
-                float(row["mag_mean"][k]), access_addr=aa))
-            cursor = abs_p + (32 + 16 + (pl + 3) * 8) * self._sps
-        return cursor, int(row["num_hits"]) > len(row["pos"])
+        """``consume_row`` over one (time, channel) cell's row from
+        ``cursor`` (``lo``: the block's first per-channel sample). A
+        method, so a test can wrap the walk's cell step
+        (``portbench/tests/test_portbench_sharded.py`` drops a rescan's
+        packets through it)."""
+        return consume_row(row, m, lo, cursor, self.block_wb // D, self._sps, aa, packets)
 
     def _walk_channel(self, m: int, host: dict, cache: dict, cursor: int,
                       base: int, aa: int, need: set) -> dict:
@@ -582,19 +497,13 @@ class ShardedWidebandScan:
             return self._walk(self._last[1])
 
     def _walk(self, host: dict) -> list:
-        # snapshot the keys this walk decodes with (follow handling may
-        # re-key the AA rows for subsequent steps)
-        self._gather_aa = self.aa_rows
-        self._gather_crc = self.crc_inits
-        aa_np = self._aa_host
+        # the keys of the scan and its rescans (following may re-key the
+        # steps after it)
+        keys = self.keys
         n_t = host["pos"].shape[0]
         k_per_block = self.block_wb // D
         base = self._stream_offset_ch if self._stream else 0
         start = self._cursors if self._stream else np.zeros(M, dtype=np.int64)
-
-        # the keys THIS scan used (pcap PHDR AA per channel)
-        chan_aa = [int.from_bytes(B.bits_to_bytes(aa_np[m]).tobytes(), "little")
-                   for m in range(M)]
         cache: dict = {}
         walks: dict = {}
         pending = range(M)
@@ -602,7 +511,7 @@ class ShardedWidebandScan:
             need: set = set()
             for m in pending:
                 walks[m] = self._walk_channel(m, host, cache, int(start[m]), base,
-                                              chan_aa[m], need)
+                                              keys.aas[m], need)
             pending = [m for m in pending if not walks[m]["done"]]
             if not pending:
                 break
@@ -624,6 +533,6 @@ class ShardedWidebandScan:
         if self.multi_follower is not None:
             changed = self.multi_follower.on_tick(self._stream_offset_ch // CH_SPS)
             if changed or self._follow_dirty:
-                self._set_tables(*self.multi_follower.tables())
+                self.keys = self.keys.rekey(*self.multi_follower.tables())
                 self._follow_dirty = False
         return packets

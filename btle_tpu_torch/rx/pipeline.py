@@ -193,31 +193,39 @@ PACK_KEYS = ("pos", "valid", "payload_len", "len_ok", "crc_ok", "pdu_bytes",
              "mag_mean", "num_hits")
 
 
-def pack_candidates(out: dict):
+def pack_candidates(out: dict, lead: int = 0):
     """Flatten a candidate dict into ONE int32 vector on its device (floats
-    ride as bit patterns), so a block costs one device-to-host copy.
-    Returns (packed, {key: (shape, numpy dtype)})."""
+    ride as bit patterns), so a block costs one device-to-host copy; with
+    ``lead`` leading axes kept, one such vector for each index of them
+    (lead=1: a (rows, L) stack of row vectors). Returns (packed, {key:
+    (shape past the leading axes, numpy dtype)})."""
     segs, layout = [], {}
     for k in PACK_KEYS:
         v = out[k]
-        layout[k] = (tuple(v.shape), np.float32 if v.dtype == torch.float32
+        layout[k] = (tuple(v.shape[lead:]), np.float32 if v.dtype == torch.float32
                      else np.bool_ if v.dtype == torch.bool else np.int32)
         v32 = (v.view(torch.int32) if v.dtype == torch.float32
                else v.to(torch.int32))
-        segs.append(v32.reshape(-1))
-    return torch.cat(segs), layout
+        # one vector (the per-block path) as plainly as it can be flattened
+        segs.append(v32.reshape(*v.shape[:lead], -1) if lead else v32.reshape(-1))
+    return torch.cat(segs, dim=-1), layout
 
 
-def unpack_candidates(buf: np.ndarray, layout: dict) -> dict:
-    """Inverse of pack_candidates on the host copy: {key: numpy array}."""
+def unpack_candidates(buf, layout: dict) -> dict:
+    """Inverse of pack_candidates on a packed vector or on a stack of them
+    (the leading axes of ``buf``): {key: array shaped (*leading axes,
+    *shape)}, numpy arrays of a host copy or tensors on the device."""
+    host = isinstance(buf, np.ndarray)
+    lead = tuple(buf.shape[:-1])
     out, off = {}, 0
     for k, (shape, dtype) in layout.items():
         n = int(np.prod(shape))
-        v = buf[off: off + n].reshape(shape)
+        v = (buf[..., off: off + n].reshape(lead + shape) if lead
+             else buf[off: off + n].reshape(shape))
         if dtype == np.float32:
-            v = v.view(np.float32)
+            v = v.view(np.float32 if host else torch.float32)
         elif dtype == np.bool_:
-            v = v.astype(bool)
+            v = v.astype(bool) if host else v.to(torch.bool)
         out[k] = v
         off += n
     return out

@@ -101,6 +101,7 @@ PORT_MODULES = [
     "btle_tpu_torch.wideband.selftest",
     "btle_tpu_torch.wideband.sniffer",
     "btle_tpu_torch.wideband.stream",
+    "btle_tpu_torch.wideband.walk",
     "chip_smoke",
 ]
 

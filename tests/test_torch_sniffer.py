@@ -275,8 +275,9 @@ def test_sniffer_selftest_and_control_registers():
     writes = [(10, 0x50655535), (12, 0x123456)]
     sn.apply_control_registers(writes)
     jsn.apply_control_registers(writes)
-    assert np.array_equal(sn.aa_rows.numpy(), np.asarray(jsn.aa_rows))
-    assert np.array_equal(sn.crc_inits.numpy(), np.asarray(jsn.crc_inits))
+    aa_rows, _, _, crc_inits, _ = sn.keys.tables
+    assert np.array_equal(aa_rows.numpy(), np.asarray(jsn.aa_rows))
+    assert np.array_equal(crc_inits.numpy(), np.asarray(jsn.crc_inits))
     # connection following is ported: one hop tracker, or a multi-follower
     assert WidebandSniffer(WidebandConfig(follow_connections=True),
                            device="cpu").hop_tracker is not None
