@@ -2,7 +2,9 @@
 
 Port of btle_tpu/runtime: ``runtime.cpp`` here is a byte-equal copy of
 the JAX package's source (an SPSC int16 IQ ring with overlap-save block
-extraction, and a UDP listener thread that fills it). On first use it is
+extraction, and a UDP listener thread that fills it). ``read_ahead.cpp``
+is the port's own: a native thread that reads the ring's next block
+while the live loop works (``ReadAhead``). On first use each source is
 compiled with g++ (``-O3 -march=native -shared -fPIC -std=c++17
 -lpthread``) into ``build/btle_tpu_torch/`` at the repository root,
 keyed by a hash of the source and the flags, as ``_build`` keys the
@@ -25,29 +27,31 @@ import numpy as np
 from .._build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parent / "runtime.cpp"
+READ_AHEAD_SOURCE = SOURCE.with_name("read_ahead.cpp")
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 _FMT_CODES = {"i8": 0, "i16": 1, "f32": 2}
 _lib: ctypes.CDLL | None = None
 _tried = False
+_ra_lib: ctypes.CDLL | None = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha1(SOURCE.read_bytes())
+def library_path(source: Path = SOURCE) -> Path:
+    h = hashlib.sha1(source.read_bytes())
     h.update("\0".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"runtime-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:12]}.so"
 
 
-def _build() -> bool:
-    """Compile runtime.cpp into library_path() (atomically: a temporary
-    file renamed into place, so a concurrent process never loads half a
-    library). False when g++ is missing or fails."""
+def _build(source: Path = SOURCE) -> bool:
+    """Compile ``source`` into library_path(source) (atomically: a
+    temporary file renamed into place, so a concurrent process never
+    loads half a library). False when g++ is missing or fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, str(SOURCE), "-lpthread"],
+        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, str(source), "-lpthread"],
                        check=True, capture_output=True, timeout=120)
-        os.replace(tmp, library_path())
+        os.replace(tmp, library_path(source))
         return True
     except (OSError, subprocess.SubprocessError):
         if os.path.exists(tmp):
@@ -55,16 +59,22 @@ def _build() -> bool:
         return False
 
 
+def _open(source: Path) -> ctypes.CDLL | None:
+    if not library_path(source).exists() and not _build(source):
+        return None
+    try:
+        return ctypes.CDLL(str(library_path(source)))
+    except OSError:
+        return None
+
+
 def _load() -> ctypes.CDLL | None:
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not library_path().exists() and not _build():
-        return None
-    try:
-        lib = ctypes.CDLL(str(library_path()))
-    except OSError:
+    lib = _open(SOURCE)
+    if lib is None:
         return None
 
     u64 = ctypes.c_uint64
@@ -107,6 +117,47 @@ def _load() -> ctypes.CDLL | None:
 def available() -> bool:
     """Whether the native runtime built and loaded."""
     return _load() is not None
+
+
+def _load_read_ahead() -> ctypes.CDLL:
+    global _ra_lib
+    if _ra_lib is None:
+        lib = _open(READ_AHEAD_SOURCE)
+        if lib is None:
+            raise RuntimeError("native read-ahead unavailable (g++ build failed)")
+        p, sz = ctypes.c_void_p, ctypes.c_size_t
+        lib.read_ahead_open.restype = p
+        lib.read_ahead_open.argtypes = [p, p, sz, sz]
+        lib.read_ahead_submit.restype = None
+        lib.read_ahead_submit.argtypes = [p, p, p]
+        lib.read_ahead_done.restype = ctypes.c_int
+        lib.read_ahead_done.argtypes = [p]
+        lib.read_ahead_wait.restype = ctypes.c_uint64
+        lib.read_ahead_wait.argtypes = [p]
+        lib.read_ahead_close.restype = None
+        lib.read_ahead_close.argtypes = [p]
+        lib.read_ahead_open_count.restype = ctypes.c_int
+        lib.read_ahead_open_count.argtypes = []
+        _ra_lib = lib
+    return _ra_lib
+
+
+def read_ahead_open_count() -> int:
+    """ReadAhead threads started and not yet joined, in this process."""
+    return int(_load_read_ahead().read_ahead_open_count())
+
+
+def _check_out(out, total: int):
+    """``out`` as (i, q), two writable C-contiguous int16 arrays of
+    ``total`` samples."""
+    i, q = out
+    for a in (i, q):
+        if not (isinstance(a, np.ndarray) and a.dtype == np.int16
+                and a.shape == (total,) and a.flags.c_contiguous
+                and a.flags.writeable):
+            raise ValueError(f"out must be two writable C-contiguous "
+                             f"int16 arrays of {total} samples")
+    return i, q
 
 
 class IqRingBuffer:
@@ -177,13 +228,7 @@ class IqRingBuffer:
             i = np.empty(total, dtype=np.int16)
             q = np.empty(total, dtype=np.int16)
         else:
-            i, q = out
-            for a in (i, q):
-                if not (isinstance(a, np.ndarray) and a.dtype == np.int16
-                        and a.shape == (total,) and a.flags.c_contiguous
-                        and a.flags.writeable):
-                    raise ValueError(f"out must be two writable C-contiguous "
-                                     f"int16 arrays of {total} samples")
+            i, q = _check_out(out, total)
         got = self._lib.iq_ring_read_block(
             self._ptr, i.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
             q.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), scan_len, halo)
@@ -212,6 +257,64 @@ class IqRingBuffer:
     @property
     def total_written(self) -> int:
         return int(self._lib.iq_ring_total_written(self._ptr))
+
+    def read_ahead(self, scan_len: int, halo: int) -> "ReadAhead":
+        """A native thread that makes this ring's ``read_block(scan_len,
+        halo, out)`` calls while the caller works; close it before the
+        ring."""
+        return ReadAhead(self, scan_len, halo)
+
+
+class ReadAhead:
+    """One native thread that reads ``ring``'s next block into views the
+    caller lends it, one request at a time: ``submit(out)`` starts the
+    read, ``done()`` says whether it has ended, ``take()`` waits for it
+    and gives ``out`` as (i, q), or None when the ring held less than a
+    block (the ring is then left as it was). ``close()`` waits for a read
+    in flight and joins the thread. The thread never takes the
+    interpreter lock."""
+
+    def __init__(self, ring: IqRingBuffer, scan_len: int, halo: int):
+        self._lib = _load_read_ahead()
+        read = ctypes.cast(ring._lib.iq_ring_read_block, ctypes.c_void_p)
+        self._ring = ring        # not collected while the thread reads it
+        self._total = scan_len + halo
+        self._out = None
+        self._ptr = self._lib.read_ahead_open(read, ring._ptr, scan_len, halo)
+        if not self._ptr:
+            raise RuntimeError("could not start the read-ahead thread")
+
+    @property
+    def busy(self) -> bool:
+        """A read was submitted and not yet taken."""
+        return self._out is not None
+
+    def submit(self, out):
+        if self.busy:
+            raise RuntimeError("take the read in flight first")
+        i, q = self._out = _check_out(out, self._total)
+        self._lib.read_ahead_submit(self._ptr, i.ctypes.data, q.ctypes.data)
+
+    def done(self) -> bool:
+        return bool(self._lib.read_ahead_done(self._ptr))
+
+    def take(self):
+        if not self.busy:
+            raise RuntimeError("no read in flight")
+        out, self._out = self._out, None
+        return out if self._lib.read_ahead_wait(self._ptr) else None
+
+    def close(self):
+        if self._ptr:
+            self._lib.read_ahead_close(self._ptr)
+            self._ptr = None
+            self._out = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 class UdpIngest:

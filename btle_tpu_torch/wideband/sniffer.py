@@ -94,9 +94,10 @@ def rescan_channel(i_wb, q_wb, slot, aa_row, aa_mask, whiten_row, crc_init,
     return {k: v[0] for k, v in out.items()}
 
 
-# staging slots of one (dtype, length): a block's upload reads its slot
-# while the host stages the next ones, so two or three serve any pipeline
-# depth (the handle keeps the device copy, not the slot)
+# staging slots of one (dtype, length): the block just staged uploads from
+# one while the ring fills another (run_live reads ahead), and a third
+# frees the host from an upload that runs late; the handle keeps the
+# device copy, not the slot, so three serve any pipeline depth
 STAGING_SLOTS = 3
 
 

@@ -14,7 +14,8 @@ properties:
     block extraction and optional dispatch pipelining: block k is
     dispatched to the device while block k-1's results are fetched and
     consumed, hiding the host walk behind device compute
-    (WidebandSniffer.scan_async / consume_scan).
+    (WidebandSniffer.scan_async / consume_scan), and block k+1 is read
+    out of the ring on a reader thread meanwhile.
 
 Candidate-slot exhaustion is not silent: every rescan the sniffer
 performs surfaces as a ``status`` event (event="truncate") with the
@@ -34,7 +35,7 @@ import numpy as np
 
 from ..ll.pdu import AdvHeader, extract_adv_a
 from ..rx.pipeline import rssi_dbm_from_mag
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .channelizer import D
 from .sniffer import WidebandPacket, WidebandSniffer
 
@@ -212,43 +213,69 @@ class WidebandStreamRunner:
         ``pipeline`` > 1 keeps that many scans in flight
         (scan_async/consume_scan) so the host walk of one block overlaps
         the next block's device work; follow re-keying then lags by
-        pipeline-1 blocks. should_stop() is polled between blocks;
+        pipeline-1 blocks. should_stop() is polled before each read;
         control (stream.control.ControlServer) register writes are
         applied between blocks like the reference's live retune.
         ``scale`` converts the ring's int16 samples back to the
         producer's float range for RSSI (1/write-scale for f32
         producers).
+
+        Block k+1 is copied out of the ring on a native reader thread
+        (``ring.read_ahead``) while this thread dispatches block k and
+        walks the blocks before it. Every block read is dispatched and
+        consumed, a stop included, and the reader is joined before the
+        call returns or raises.
         """
         sn = self.sn
         step = sn.cfg.scan_len_ch * D
         halo_wb = sn.halo_ch * D
         pending: deque = deque()
-        t_start = time.perf_counter()
-        while True:
+        reader = ring.read_ahead(step, halo_wb)
+
+        def read_next() -> bool:
+            """Start the next read unless should_stop(); its answer."""
             stop = should_stop() if should_stop is not None else False
-            with span("run_live.read", block=sn.blocks_dispatched):
+            if not stop:
                 # the block lands in the sniffer's staging slot, behind
                 # the room its filter context takes
-                blk = None if stop else ring.read_block(
-                    step, halo_wb, out=sn.staging_views(np.int16))
-            if blk is not None:
-                if control is not None:
-                    writes = control.poll()
-                    if writes:
-                        sn.apply_control_registers(writes)
-                i16, q16 = blk
-                self.mag_scale = scale
-                pending.append(sn.scan_async(i16, q16))
-                if len(pending) >= max(1, pipeline):
+                reader.submit(sn.staging_views(np.int16))
+            return stop
+
+        t_start = time.perf_counter()
+        try:
+            stop = False
+            while True:
+                if not reader.busy:
+                    stop = read_next()
+                blk = None
+                if reader.busy:
+                    with span("run_live.read", block=sn.blocks_dispatched):
+                        ready = reader.done()
+                        blk = reader.take()
+                    if ready and blk is not None:
+                        count("read_ready")
+                if blk is not None:
+                    if control is not None:
+                        writes = control.poll()
+                        if writes:
+                            sn.apply_control_registers(writes)
+                    i16, q16 = blk
+                    self.mag_scale = scale
+                    pending.append(sn.scan_async(i16, q16))
+                    # read block k+1 while block k-1 is walked
+                    stop = read_next()
+                    if len(pending) >= max(1, pipeline):
+                        self.consume(pending.popleft())
+                elif pending:
+                    # no input ready: drain the in-flight backlog
                     self.consume(pending.popleft())
-            elif pending:
-                # no input ready: drain the in-flight backlog
-                self.consume(pending.popleft())
-            elif stop:
-                break
-            else:
-                with span("run_live.read", block=sn.blocks_dispatched):
-                    time.sleep(idle_sleep_s)
+                elif stop:
+                    break
+                else:
+                    with span("run_live.read", block=sn.blocks_dispatched):
+                        time.sleep(idle_sleep_s)
+        finally:
+            reader.close()
         self.stats.wall_s = time.perf_counter() - t_start
         self.stats.dropped_pairs = ring.dropped
         return self.stats

@@ -21,7 +21,8 @@ narrow tiles, with scalar-load row strides and at the K11 shape — every
 knob-matrix row's self-test, and the
 port's device path against its CPU path (wideband sniffer with and
 without connection following, its live ring loop and its pinned
-staging slots at pipeline depths 1-3, the narrowband
+staging slots at pipeline depths 1-3, the loop's read-ahead against a
+writing feed at 131072 samples a block, the narrowband
 sniffer); then V1, the coded Viterbi, bit for bit on soft and tied hard
 inputs (one warp a CTA above 48 KB of shared memory), the narrowband and
 40-channel LE Coded receivers against the CPU with V1's launch count,
@@ -605,6 +606,80 @@ def test_run_live_staging_on_card_matches_file_run(dev, pipeline):
     assert key(got) == key(want) and sum(p.crc_ok for p in got) >= 2
     assert pending_writes and not any(pending_writes)
     assert len(sn._slots) <= 3 and all(s.host.is_pinned() for s in sn._slots)
+
+
+def test_run_live_reads_ahead_on_card(dev):
+    """run_live at pipeline 2 over the native ring while a feed thread
+    writes it, at 131072 samples a block on the benchmark's air (dense
+    enough to rescan): the file run's packets, and some blocks already
+    read when the loop comes to take them (how many depends on the host's
+    timing, so the share is reported, not held to a bound)."""
+    import json
+    import threading
+    import time
+    from pathlib import Path
+
+    from btle_tpu_torch import runtime
+    from btle_tpu_torch.utils import profiling as P
+    from btle_tpu_torch.wideband.stream import WidebandStreamRunner
+    from portbench.scenes import ble_air
+
+    if not runtime.available():
+        pytest.skip("the native runtime did not build (no g++)")
+    traffic = Path(__file__).resolve().parent.parent / "portbench/traffic/replay_128k.json"
+    scene = ble_air.generate(json.loads(traffic.read_text())["scene"], 7, 3)
+    cfg = WidebandConfig(scan_len_ch=131072, fused=True, fused_dtype="bf16x2w")
+    live = WidebandStreamRunner(WidebandSniffer(cfg, device=dev),
+                                ndjson=S.NdjsonEmitter(io.StringIO()))
+    sn = live.sn
+    step, blocks = 131072 * 20, 52
+    n = blocks * step + sn.halo_ch * 20
+    i16 = np.resize(scene.iq[0::2], n)
+    q16 = np.resize(scene.iq[1::2], n)
+    inter = np.empty(2 * n, np.int16)
+    inter[0::2], inter[1::2] = i16, q16
+    cap = 1 << 25
+    ring = runtime.IqRingBuffer(cap)
+    fed = threading.Event()
+
+    def feed():
+        off = 0
+        while off < n:
+            k = min(1 << 20, n - off)
+            if cap - ring.available_pairs < k:
+                time.sleep(0.0002)
+                continue
+            assert ring.write(inter[2 * off: 2 * (off + k)], "i16") == k
+            off += k
+        fed.set()
+
+    got = []
+    consume = live.consume
+    live.consume = lambda h: got.extend(consume(h)) or got
+    feeder = threading.Thread(target=feed)
+    tr = P.Tracer(1 << 14)
+    feeder.start()
+    try:
+        with P.tracing(tr):
+            live.run_live(ring, pipeline=2, should_stop=lambda: fed.is_set() and
+                          ring.available_pairs < sn.wb_block_len)
+    finally:
+        feeder.join(timeout=60)
+        ring.close()
+    assert not feeder.is_alive()
+    file_run = WidebandStreamRunner(WidebandSniffer(cfg, device=dev))
+    want = file_run.run_capture(i16, q16)
+
+    def key(pkts):
+        return [(p.channel, p.sample_pos, p.crc_ok, p.pdu_bytes.tobytes(), p.rssi_mag)
+                for p in pkts]
+
+    assert sn.blocks_dispatched == file_run.sn.blocks_dispatched == blocks
+    assert key(got) == key(want) and sum(p.crc_ok for p in got) >= blocks
+    assert sn.truncated_channels > 0
+    ready = tr.totals()["counters"].get("read_ready", 0)
+    print(f"read_ready {ready} of {blocks} blocks")
+    assert ready > 0
 
 
 @pytest.mark.parametrize("kw", [dict(compute_dtype="bf16x2w"),

@@ -118,7 +118,7 @@ def _int16_pairs(wi, wq, pad):
     return inter
 
 
-@pytest.mark.parametrize("pipeline", [1, 3])
+@pytest.mark.parametrize("pipeline", [1, 2, 3])
 def test_run_live_equal_jax(follow_scene, pipeline):
     if not (runtime.available() and jruntime.available()):
         pytest.skip("the native runtime did not build (no g++)")
